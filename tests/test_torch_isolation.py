@@ -1,0 +1,88 @@
+"""sparse_tpu_torch stands alone: no jax, no sparse_tpu, no silent CPU."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import sparse_tpu_torch as st
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SPARSE_TPU_TORCH_")}
+    env["PYTHONPATH"] = ROOT
+    env["CUDA_VISIBLE_DEVICES"] = ""  # no card, even on a machine that has one
+    return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, timeout=120)
+
+
+def test_import_pulls_in_neither_jax_nor_sparse_tpu():
+    code = (
+        "import sys\n"
+        "import sparse_tpu_torch, sparse_tpu_torch.linalg, sparse_tpu_torch.io\n"
+        "import sparse_tpu_torch.kernels.cg_dia, sparse_tpu_torch.kernels.dia_spmv\n"
+        "import sparse_tpu_torch.interop, sparse_tpu_torch.plan_cache\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sparse_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_chip_smoke_imports_neither_and_refuses_without_cuda():
+    """chip_smoke.py needs a card: with none visible it exits non-zero with
+    no result line, without importing jax or sparse_tpu."""
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['chip_smoke.py']\n"
+        "try:\n"
+        f"    runpy.run_path({os.path.join(ROOT, 'chip_smoke.py')!r}, run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    rc = e.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sparse_tpu'))\n"
+        "print('rc', rc, 'bad', bad)\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "rc 2 bad []"
+    assert '"ok"' not in out.stdout
+
+
+def test_cuda_request_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    old = st.settings.device
+    try:
+        st.settings.device = "cuda"  # the package default
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            st.diags([1.0, 2.0], [0, 1], shape=(3, 3))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            st.io.mmread(os.path.join(ROOT, "testdata", "small.mtx"))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            st.csr_array(np.eye(3))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            st.linalg.cg(st.linalg.IdentityOperator((3, 3)), np.ones(3))
+        st.settings.device = "cpu"
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            st.diags([1.0, 2.0], [0, 1], shape=(3, 3), device="cuda")
+        A = st.diags([1.0, 2.0], [0, 1], shape=(3, 3))  # asks for the CPU: runs
+        assert A.device.type == "cpu"
+    finally:
+        st.settings.device = old
+
+
+def test_default_device_is_cuda():
+    from sparse_tpu_torch.config import Settings
+
+    env = os.environ.pop("SPARSE_TPU_TORCH_DEVICE", None)
+    try:
+        assert Settings().device == "cuda"
+    finally:
+        if env is not None:
+            os.environ["SPARSE_TPU_TORCH_DEVICE"] = env
