@@ -4,19 +4,35 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, ``nvcc`` and the repository checkout beside this file;
-exits non-zero without them, and on any failed check. Phases:
+exits non-zero without them, and on any failed check. Phases, in the order
+they run (1, 2a-2c, 3, 5, 6, 4):
 
 1. card name and power limit; build the CUDA kernels (csrc/*.cu) and time it;
-2. each kernel against its plain torch version on the card, at the main
-   path's shapes (the 6000^2 Laplacian) and on the edge cases of
-   tests/test_dia_spmv.py; one fused solve run twice must be bit-identical;
+2. each kernel against its plain torch version on the card: (a, b) the DIA
+   SpMV and fused-CG kernels at the main path's shapes (the 6000^2
+   Laplacian) and on the edge cases of tests/test_dia_spmv.py, one fused
+   solve run twice bit-identical; (c) both SELL-C-sigma kernels in f32 and
+   f64 on tests/test_torch_sell.py's edge cases and on the full-size packs
+   of phases 5 and 6, and a complex operand must raise;
 3. the main path, as examples/pde.py drives it, at the reference's per-GPU
    size (6000^2 = 36e6 unknowns, float32): diags -> tocsc -> .T -> tocsr,
    y = A @ ones against a host f64 reference on sampled rows, a 300-iteration
    throughput CG, and a tolerance-driven CG at 1000^2 whose true residual is
-   computed in f64 on the host; every kernel's launch counter must move;
+   computed in f64 on the host;
+5. the general (non-banded) path at bench.py's skewed_degree_csr(2**21),
+   float32, spmv_mode 'auto': A @ x against scipy in f64 on sampled rows, a
+   100-iteration throughput CG and a tolerance CG (1e-6 ||b||) whose true
+   residual is held in f64 on the host;
+6. batched_cg over 64 lanes A + d_b I sharing skewed_degree_csr(2**16)'s
+   pattern: every lane converges with its true residual held in f64 and
+   the iteration count of linalg.cg on that lane alone; solves/s against
+   the lanes solved one after another;
 4. times from CUDA events: each kernel, its plain version, its bound, and
    where one exists the PyTorch library call computing the same function.
+
+Each of the three paths (3, 5, 6) runs with every kernel's launch counter
+set to 0 just before it and read just after; each kernel of the path must
+have launched.
 
 The last lines are one JSON object listing the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -67,6 +83,79 @@ def laplacian_diagonals(nx: int, ny: int, dtype=np.float32):
     diag_g = np.full(n - nxs, g, dtype=dtype)
     diag_c = np.full(n, c, dtype=dtype)
     return [diag_g, diag_a, diag_c, diag_a, diag_g], [-nxs, -1, 0, 1, nxs], n
+
+
+def skewed_degree_csr(m: int, seed: int = 7):
+    """bench.py's power-law-degree SPD matrix (scipy CSR, f32): pareto row
+    degrees capped at m/20, symmetrized, diagonally dominant."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    deg = np.minimum((rng.pareto(1.2, m) * 4 + 1).astype(int), max(m // 20, 8))
+    rows = np.repeat(np.arange(m), deg)
+    cols = rng.integers(0, m, rows.shape[0])
+    vals = rng.random(rows.shape[0])
+    G = sp.coo_matrix((vals, (rows, cols)), shape=(m, m)).tocsr()
+    A = (G + G.T) * 0.5
+    A = A + sp.diags(np.asarray(np.abs(A).sum(axis=1)).ravel() + 1.0)
+    return A.tocsr().astype(np.float32)
+
+
+def powerlaw_csr(m: int, seed: int):
+    """tests/test_sell_spmv.py's power-law profile with one near-dense row
+    (scipy CSR, f64)."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    deg = np.minimum((rng.pareto(1.0, m) * 3 + 1).astype(int), m - 1)
+    deg[0] = m - 1
+    rows = np.repeat(np.arange(m), deg)
+    cols = rng.integers(0, m, rows.shape[0])
+    vals = rng.standard_normal(rows.shape[0])
+    return sp.coo_matrix((vals, (rows, cols)), shape=(m, m)).tocsr()
+
+
+def sell_edge_cases():
+    """tests/test_torch_sell.py's awkward shapes (scipy CSR, f64)."""
+    import scipy.sparse as sp
+
+    return {
+        "powerlaw": powerlaw_csr(300, 5),
+        "empty_rows": sp.csr_matrix(
+            (np.array([1.0, 2.0]), np.array([1, 3]), np.array([0, 0, 2, 2, 2, 2])), shape=(5, 4)
+        ),
+        "dup_cols": sp.csr_matrix(
+            (np.array([1.0, 2.0, 4.0]), np.array([1, 1, 0]), np.array([0, 2, 3, 3])), shape=(3, 3)
+        ),
+        "random": sp.random(37, 29, density=0.25, random_state=np.random.default_rng(1),
+                            format="csr"),
+        "zero_nnz": sp.csr_matrix((7, 5)),
+    }
+
+
+def lane_values(A_s, lanes: int, seed: int):
+    """The batched phase's value stack: lane b is A + d_b I, d_b in [0, 1)
+    from the seed (the same pattern, still SPD), f32 ``[lanes, nnz]``."""
+    m = A_s.shape[0]
+    on_diag = A_s.indices == np.repeat(np.arange(m), np.diff(A_s.indptr))
+    d = np.random.default_rng(seed).random(lanes).astype(np.float32)
+    return A_s.data[None, :] + d[:, None] * on_diag[None, :].astype(np.float32)
+
+
+def f64_residual(A64, x, b):
+    """(||b - A x|| / ||b||, eps_f32 * || |A| |x| || / ||b||) in f64 on the
+    host: the true relative residual and the f32 rounding floor under it.
+
+    An f32 CG stops on its recursive residual; the true one drifts from it
+    by rounding in every update of x and r, a random walk of about one
+    floor per iteration. The general and batched phases hold a solve of k
+    iterations to tol + sqrt(k) floors."""
+    x = np.asarray(x, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    bn = float(np.linalg.norm(b))
+    rel = float(np.linalg.norm(b - A64 @ x)) / bn
+    floor = float(np.finfo(np.float32).eps) * float(np.linalg.norm(abs(A64) @ np.abs(x))) / bn
+    return rel, floor
 
 
 def cuda_ms(fn, reps: int, sync) -> float:
@@ -228,6 +317,141 @@ def check_cg_kernels(dev, lap):
     return err_a, err_b, (plan, planes, x, r, p, sc, ws)
 
 
+def hold_sell_slabs(label, idx_slabs, val_slabs, x, lanes=None):
+    """Each slab of a SELL pack through its kernel and its plain version on
+    the same inputs. Narrow slabs must equal the plain version bit for bit.
+    A split-K slab sums its K products in segments of KS planes, then W
+    warp partials, then nblk block partials, while the plain version sums
+    all K in order; with u = eps / 2 and S = sum_k |val * x| per row, the
+    recursive-summation bounds give |kernel - plain| <= (K + KS + W + nblk)
+    u S. At f32 the kernel is also held against the sum taken in f64:
+    |kernel - exact| <= (KS + W + nblk) u S. (A flat 4 eps S cannot hold:
+    on a row dominated by one large term, such as the diagonal of the
+    diagonally dominant skewed matrix, the plain K-term sum itself drifts
+    by about sqrt(K) u S.) ``lanes`` selects the batched kernel (``val``
+    [B, K, R], x [B, n]). Returns (max |kernel - plain|, slabs, split-K
+    slabs, max |kernel - exact| / (u S), max |plain - exact| / (u S)),
+    the last two over split-K slabs at f32."""
+    import torch
+    from sparse_tpu_torch.kernels import sell_spmv as S
+
+    u = torch.finfo(x.dtype).eps / 2
+    worst, n_split, r_kernel, r_plain = 0.0, 0, 0.0, 0.0
+    for it, vt in zip(idx_slabs, val_slabs):
+        K_, R = it.shape
+        if lanes is None:
+            got, want = S.sell_spmv_slab(it, vt, x), S.sell_spmv_slab_plain(it, vt, x)
+            KS, W, nblk = S.sell_split(K_, R)
+        else:
+            got, want = S.sell_spmv_slab_batched(it, vt, x), S.sell_spmv_slab_batched_plain(it, vt, x)
+            KS, W, nblk = S.sell_split(K_, R)
+        err = (got - want).abs()
+        worst = max(worst, float(err.max()) if err.numel() else 0.0)
+        narrow = (W, nblk) == (1, 1)
+        if narrow:
+            ok = bool(torch.equal(got, want))
+        else:
+            n_split += 1
+            terms = vt.double() * (x[it] if lanes is None else x[:, it]).double()
+            mag = terms.abs().sum(dim=-2)
+            ok = bool(torch.all(err.double() <= (K_ + KS + W + nblk) * u * mag))
+            if x.dtype == torch.float32:
+                exact = terms.sum(dim=-2)
+                dk, dp = (got.double() - exact).abs(), (want.double() - exact).abs()
+                ok = ok and bool(torch.all(dk <= (KS + W + nblk) * u * mag))
+                scale = (u * mag).clamp(min=1e-300)
+                r_kernel = max(r_kernel, float((dk / scale).max()))
+                r_plain = max(r_plain, float((dp / scale).max()))
+            del terms, mag
+        if not ok:
+            raise AssertionError(f"{label}: slab K={K_} R={R} ({'narrow' if narrow else 'split-K'}) "
+                                 f"out of its bound (max |kernel - plain| {float(err.max()):.3g})")
+    return worst, len(idx_slabs), n_split, r_kernel, r_plain
+
+
+def check_sell_kernels(dev, A_s, lanes_s, lanes: int):
+    """Phase 2c: both SELL kernels against their plain versions, f32 and
+    f64, on tests/test_torch_sell.py's edge cases (two pack geometries, one
+    quantized to powers of two) and on the full-size packs of phases 5 and
+    6; a dtype with no kernel must raise. Returns the max |kernel - plain|
+    of each kernel on its full-size pack in f32."""
+    import torch
+    from sparse_tpu_torch.batch import BatchedCSR
+    from sparse_tpu_torch.kernels import sell_spmv as S
+
+    print("phase 2c: SELL kernels vs plain", flush=True)
+    rng = np.random.default_rng(2)
+    for label, s in sell_edge_cases().items():
+        tally = np.zeros(3)  # slabs, split-K slabs, max |kernel - plain|
+        for C, sigma, max_slabs in ((8, 4096, 16), (4, 16, 3)):
+            for dt in (torch.float32, torch.float64):
+                plan, slabs, pos = S.sell_pack(s.indptr, s.indices, s.data, s.shape, C=C,
+                                               sigma=sigma, max_slabs=max_slabs, device=dev)
+                vals = [vt.to(dt) for _, vt in slabs]
+                x = torch.tensor(rng.standard_normal(s.shape[1]), dtype=dt, device=dev)
+                tag = f"{label} C={C} sigma={sigma} max_slabs={max_slabs} {dt}"
+                X = torch.tensor(rng.standard_normal((3, s.shape[1])), dtype=dt, device=dev)
+                for held in (hold_sell_slabs(tag, [it for it, _ in slabs], vals, x),
+                             hold_sell_slabs(tag + " batched", [it for it, _ in slabs],
+                                             [torch.stack([v, 2 * v, -v]) for v in vals], X, lanes=3)):
+                    tally = np.array([tally[0] + held[1], tally[1] + held[2], max(tally[2], held[0])])
+                y = S.sell_spmv(plan, tuple(zip([it for it, _ in slabs], vals)), pos, x)
+                ref = s.astype(np.float64) @ x.double().cpu().numpy()
+                tol = 1e-4 if dt == torch.float32 else 1e-12
+                if not np.allclose(y.double().cpu().numpy(), ref, rtol=tol, atol=tol):
+                    raise AssertionError(f"{tag}: sell_spmv differs from scipy")
+        check(True, f"{label}: 2 geometries x f32/f64 x single/batched (x3 lanes), {int(tally[0])} "
+                    f"slabs ({int(tally[1])} split-K) held against their plain versions (max "
+                    f"|kernel - plain| = {tally[2]:.3g}); sell_spmv equals scipy")
+
+    errs = {}
+    print(f"  full-size pack of phase 5 (m = {A_s.shape[0]}, nnz = {A_s.nnz})", flush=True)
+    plan, slabs, _pos = S.sell_pack(A_s.indptr, A_s.indices, A_s.data, A_s.shape, device=dev)
+    print(f"  {plan}, {plan.stored_slots} stored slots", flush=True)
+    for dt in (torch.float32, torch.float64):
+        # signed x: partial sums random-walk, so the two summation orders
+        # differ by O(eps) of sum |val * x| (positive terms would drift
+        # apart by ~sqrt(K) eps on the K = 131072 slab)
+        x = torch.randn((A_s.shape[1],), dtype=dt, device=dev)
+        tag = f"sell_spmv_slab full size {dt}"
+        err, ns, nsplit, rk, rp = hold_sell_slabs(tag, [it for it, _ in slabs],
+                                                  [vt.to(dt) for _, vt in slabs], x)
+        check(True, f"{tag}: {ns} slabs, narrow ones bit-identical to the plain version, "
+                    f"{nsplit} split-K within their bounds (max |kernel - plain| = {err:.3g}; "
+                    f"max |kernel - f64| {rk:.3g} u S, plain {rp:.3g} u S)")
+        if dt == torch.float32:
+            errs["sell_spmv_slab"] = err
+    del slabs
+
+    print(f"  full-size batched pack of phase 6 ({lanes} lanes, m = {lanes_s.shape[0]})", flush=True)
+    bc = BatchedCSR(lanes_s, torch.tensor(lane_values(lanes_s, lanes, seed=5), device=dev))
+    for dt in (torch.float32, torch.float64):
+        pack, vplanes = bc._packed(dt)
+        X = torch.randn((lanes, lanes_s.shape[1]), dtype=dt, device=dev)
+        tag = f"sell_spmv_slab_batched full size {dt}"
+        err, ns, nsplit, rk, rp = hold_sell_slabs(tag, pack.idx_slabs, vplanes, X, lanes=lanes)
+        check(True, f"{tag}: {ns} slabs, narrow ones bit-identical to the plain version, "
+                    f"{nsplit} split-K within their bounds (max |kernel - plain| = {err:.3g}; "
+                    f"max |kernel - f64| {rk:.3g} u S, plain {rp:.3g} u S)")
+        if dt == torch.float32:
+            errs["sell_spmv_slab_batched"] = err
+    del bc
+
+    s = powerlaw_csr(60, 2).astype(np.complex64)
+    prep = S.PreparedCSR(s.indptr, s.indices, s.data, s.shape, device=dev)
+    bcx = BatchedCSR(s, torch.tensor(np.stack([s.data, s.data]), device=dev))
+    for what, call in (("PreparedCSR", lambda: prep(torch.ones(60, dtype=torch.complex64, device=dev))),
+                       ("BatchedCSR", lambda: bcx.matvec(torch.ones((2, 60), dtype=torch.complex64,
+                                                                    device=dev)))):
+        try:
+            call()
+            raised = ""
+        except TypeError as e:
+            raised = str(e)
+        check("no CUDA kernel" in raised, f"a complex64 operand raises in {what}: {raised!r}")
+    return errs
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -366,6 +590,184 @@ def main_path(dev, grid: int, small_grid: int):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the general (non-banded) path
+# ---------------------------------------------------------------------------
+def general_path(dev, A_s):
+    """bench.py::run_skewed_cg's shape under the default spmv_mode 'auto':
+    the skewed matrix skips the DIA branch and the ELL gate and takes the
+    prepared SELL operator. A @ x against scipy in f64 on sampled rows, a
+    100-iteration throughput CG, a tolerance CG (1e-6 ||b||) whose true
+    residual is held in f64 on the host."""
+    import torch
+    import sparse_tpu_torch as sparse
+    from sparse_tpu_torch import linalg, plan_cache
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    m = A_s.shape[0]
+    deg = np.diff(A_s.indptr)
+    out = {"m": m, "nnz": int(A_s.nnz), "max_deg": int(deg.max())}
+    print(f"phase 5: general path at skewed_degree_csr({m}) (float32, nnz {A_s.nnz}, max degree "
+          f"{out['max_deg']}, spmv_mode {sparse.settings.spmv_mode!r})", flush=True)
+    t0 = time.perf_counter()
+    A = sparse.csr_array(A_s, device=dev)
+    sync()
+    out["build_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(11)
+    x_np = rng.standard_normal(m).astype(np.float32)
+    x = torch.tensor(x_np, device=dev)
+    t0 = time.perf_counter()
+    y = A @ x
+    sync()
+    out["first_spmv_s"] = time.perf_counter() - t0
+    print(f"  to the card {out['build_s']:.3f} s; first A @ x (banded test, ELL gate, host SELL "
+          f"pack, launches) {out['first_spmv_s']:.3f} s", flush=True)
+    prep = plan_cache.lookup(A, "sell")
+    check(prep is not None and A._maybe_dia() is None,
+          "'auto' routed the skewed matrix past DIA to the prepared SELL operator")
+    out.update(slabs=len(prep.plan.slab_meta), stored_slots=prep.plan.stored_slots,
+               pad_ratio=prep.plan.pad_ratio)
+    print(f"  {prep.plan}: {prep.plan.stored_slots} stored slots; slab (K, R): "
+          f"{[(k, r) for k, r, _ in prep.plan.slab_meta]}", flush=True)
+    # the same pack without the reference's 16-slab cap (every chunk width a
+    # slab of its own), on the host: the padding the cap's rounding costs
+    from sparse_tpu_torch.kernels.sell_spmv import sell_pack
+
+    free = sell_pack(A_s.indptr, A_s.indices, A_s.data, A_s.shape, max_slabs=2**62, device="cpu")[0]
+    out.update(uncapped_slabs=len(free.slab_meta), uncapped_pad_ratio=free.pad_ratio)
+    print(f"  without the 16-slab cap: {len(free.slab_meta)} slabs, pad ratio {free.pad_ratio:.3f}",
+          flush=True)
+    del free
+    check(tuple(y.shape) == (m,) and bool(torch.isfinite(y).all()), "A @ x: finite, shape (m,)")
+    rows = np.unique(np.concatenate([rng.choice(m, min(4096, m), replace=False),
+                                     [0, m - 1, int(deg.argmax())]]))
+    sub = A_s[rows].astype(np.float64)
+    want = sub @ x_np.astype(np.float64)
+    mag = abs(sub) @ np.abs(x_np).astype(np.float64)
+    err = np.abs(y[torch.as_tensor(rows, device=dev)].double().cpu().numpy() - want)
+    check(bool(np.all(err <= (deg[rows] + 2) * np.finfo(np.float32).eps * mag)),
+          f"A @ x vs scipy in f64 on {len(rows)} sampled rows, the widest included "
+          f"(max err {err.max():.3g}, bound (row length + 2) eps sum |a_ij x_j|)")
+
+    b_np = np.random.default_rng(3).standard_normal(m).astype(np.float32)
+    b = torch.tensor(b_np, device=dev)
+    for rep in range(2):  # run 0 warms
+        sync()
+        t0 = time.perf_counter()
+        xt, it = linalg.cg(A, b, maxiter=100, tol=1e-30, conv_test_iters=200)
+        sync()
+        dt = time.perf_counter() - t0
+        print(f"  throughput cg run {rep}: {it} iterations in {dt:.4f} s", flush=True)
+    out["cg_iters_per_s"] = it / dt
+    check(it == 100 and bool(torch.isfinite(xt).all()),
+          "cg(maxiter=100, tol=1e-30): 100 iterations, finite x")
+
+    A64 = A_s.astype(np.float64)
+    tol = 1e-6 * float(np.linalg.norm(b_np.astype(np.float64)))
+    sync()
+    t0 = time.perf_counter()
+    xs, its = linalg.cg(A, b, tol=tol, maxiter=5000)
+    sync()
+    out["tol_cg_s"], out["tol_cg_iters"] = time.perf_counter() - t0, its
+    rel, floor = f64_residual(A64, xs.cpu().numpy(), b_np)
+    out["tol_cg_rel_residual"], out["tol_cg_f32_floor"] = rel, floor
+    print(f"  tolerance cg: {its} iterations in {out['tol_cg_s']:.4f} s", flush=True)
+    check(its < 5000, f"cg stops on tol = 1e-6 ||b|| after {its} iterations")
+    check(rel <= 1e-6 + np.sqrt(its) * floor,
+          f"true residual ||b - Ax|| / ||b|| = {rel:.3g} (f64, host) <= 1e-6 + sqrt({its}) x the "
+          f"f32 rounding floor {floor:.3g}")
+    return A, prep, out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: batched Krylov over one pattern
+# ---------------------------------------------------------------------------
+def batched_path(dev, A_s, lanes: int):
+    """``lanes`` SPD systems A + d_b I over skewed_degree_csr's pattern
+    through batched_cg (the batched SELL kernel) with per-lane tolerances
+    between 1e-4 and 1e-6 of ||b_b||, f32: every lane converges, its true
+    residual holds in f64, and its iteration count and x equal those of
+    ``linalg.cg`` on the lane alone; a batch of one equals ``linalg.cg``.
+    Solves/s against the lanes solved one after another."""
+    import scipy.sparse as sp
+    import torch
+    from sparse_tpu_torch import linalg
+    from sparse_tpu_torch.batch import BatchedCSR, SparsityPattern, batched_cg
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    m = A_s.shape[0]
+    print(f"phase 6: batched_cg, {lanes} lanes over skewed_degree_csr({m}) (float32, nnz "
+          f"{A_s.nnz} per lane)", flush=True)
+    pattern = SparsityPattern.from_csr(A_s)
+    vals = lane_values(A_s, lanes, seed=5)
+    bc = BatchedCSR(pattern, torch.tensor(vals, device=dev))
+    rng = np.random.default_rng(6)
+    b_np = rng.standard_normal((lanes, m)).astype(np.float32)
+    rel_tol = 10.0 ** (-4 - 2 * rng.random(lanes))
+    tol_np = (rel_tol * np.linalg.norm(b_np.astype(np.float64), axis=1)).astype(np.float32)
+    b = torch.tensor(b_np, device=dev)
+    maxiter = 2000
+    out = {"lanes": lanes, "m": m, "nnz": int(A_s.nnz)}
+    t = []
+    for rep in range(2):  # run 0 packs the pattern and the values
+        sync()
+        t0 = time.perf_counter()
+        X, info = batched_cg(bc, b, tol=tol_np, maxiter=maxiter)
+        sync()
+        t.append(time.perf_counter() - t0)
+    out["first_batched_s"], out["batched_s"] = t
+    iters = info.iters.cpu().numpy()
+    print(f"  batched_cg: {t[1]:.4f} s ({t[0]:.4f} s with the packs); lane iterations "
+          f"{iters.min()}..{iters.max()}", flush=True)
+    check(bool(info.converged.all()), f"all {lanes} lanes converged")
+    Xh = X.cpu().numpy()
+    worst = 0.0
+    for i in range(lanes):
+        Ai = sp.csr_matrix((vals[i].astype(np.float64), A_s.indices, A_s.indptr), shape=A_s.shape)
+        rel, floor = f64_residual(Ai, Xh[i], b_np[i])
+        bound = rel_tol[i] + np.sqrt(iters[i]) * floor
+        if rel > bound:
+            raise AssertionError(f"lane {i}: true residual {rel:.3g} > tol {rel_tol[i]:.3g} + "
+                                 f"sqrt({iters[i]}) x floor {floor:.3g}")
+        worst = max(worst, rel / bound)
+    check(True, f"every lane's true residual (f64, host) <= its tol + sqrt(iterations) x the f32 "
+                f"floor (worst lane at {worst:.3f} of its bound)")
+
+    # the lanes one after another; each lane's SELL pack is set-up, not timed
+    seq_s, mism, differ = 0.0, [], []
+    for i in range(lanes):
+        Ai = bc.lane(i)
+        Ai @ b[i]
+        sync()
+        t0 = time.perf_counter()
+        xu, iu = linalg.cg(Ai, b[i], tol=float(tol_np[i]), maxiter=maxiter)
+        sync()
+        seq_s += time.perf_counter() - t0
+        if iu != int(iters[i]):
+            mism.append((i, int(iters[i]), iu))
+        if not torch.equal(X[i], xu):
+            differ.append(i)
+        if i == 0:
+            x0u, i0u = xu, iu
+        del Ai
+    out["sequential_s"] = seq_s
+    # each lane's SpMV sums and dot products equal the lone solve's bit for
+    # bit; CG on this matrix amplifies any last-bit difference after its
+    # first ~75 iterations, so anything less would move iteration counts
+    check(not mism and not differ,
+          f"every lane takes linalg.cg's iteration count on that lane and its x bit for bit "
+          f"(count mismatches (lane, batched, alone): {mism}; x differs on lanes {differ})")
+    X1, info1 = batched_cg(BatchedCSR(pattern, bc.values[:1]), b[:1], tol=tol_np[:1],
+                           maxiter=maxiter)
+    check(int(info1.iters[0]) == i0u and bool(torch.equal(X1[0], x0u)),
+          f"B = 1: batched_cg equals linalg.cg bit for bit ({i0u} iterations)")
+    out["batched_solves_per_s"] = lanes / t[1]
+    out["sequential_solves_per_s"] = lanes / seq_s
+    print(f"  {out['batched_solves_per_s']:.2f} solves/s batched vs "
+          f"{out['sequential_solves_per_s']:.2f} solves/s one lane after another", flush=True)
+    return bc, X, out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 def timings(dev, A, cg_state, bw, flops):
@@ -420,13 +822,126 @@ def timings(dev, A, cg_state, bw, flops):
     return t
 
 
-def run(dev: str = "cuda", grid: int = 6000, small_grid: int = 1000) -> dict:
+def sell_timings(dev, A, prep, bc, bw, flops):
+    """Times of the two SELL kernels at the full-size packs of phases 5 and
+    6: every slab's launch for one product (the packed y, before the pos
+    gather), the plain slab loop, and the PyTorch library call computing
+    A @ x (torch.sparse_csr_tensor; for the batch a 3-D CSR tensor through
+    torch.bmm). Bytes: every stored slot's index and value read once, x
+    read once and the packed y written once; the shared index planes once
+    for the batch, its values, x and y per lane."""
+    import torch
+    from sparse_tpu_torch.kernels import sell_spmv as S
+
+    sync = torch.cuda.synchronize
+    reps = 20
+    t = {}
+    plan, slabs = prep.plan, prep.slabs
+    n, rows = plan.n, sum(R for _, R, _ in plan.slab_meta)
+    x = torch.randn((n,), dtype=torch.float32, device=dev)
+    ybuf = torch.empty((rows,), dtype=torch.float32, device=dev)
+
+    def slab_calls(slabs, meta, xv, yv, launch):
+        """One zero-argument launch per slab, each into its rows of yv."""
+        calls, off = [], 0
+        for (it, vt), (_K, R, _) in zip(slabs, meta):
+            calls.append((lambda it=it, vt=vt, o=off, R=R: launch(it, vt, xv, out=yv[..., o : o + R])))
+            off += R
+        return calls
+
+    calls = slab_calls(slabs, plan.slab_meta, x, ybuf, S.sell_spmv_slab)
+    ib = slabs[0][0].element_size()
+    r = t["sell_spmv_slab"] = dict(
+        ms=cuda_ms(lambda: [c() for c in calls], reps, sync),
+        plain_ms=cuda_ms(lambda: [S.sell_spmv_slab_plain(it, vt, x) for it, vt in slabs], 1, sync),
+        bytes=plan.stored_slots * (ib + 4) + 4 * (n + rows), ops=2 * plan.stored_slots,
+    )
+    csr = torch.sparse_csr_tensor(A.indptr, A.indices, A.data, size=A.shape)
+    y_lib, y_k = csr @ x, A @ x
+    r["library_ms"] = cuda_ms(lambda: csr @ x, reps, sync)
+    r["a_at_x_ms"] = cuda_ms(lambda: A @ x, reps, sync)
+    print(f"  general A @ x end to end (slabs + pos gather): {r['a_at_x_ms']:.4f} ms; library "
+          f"(torch.sparse_csr_tensor @ x) vs kernel path: max |diff| / max |y| = "
+          f"{float((y_lib - y_k).abs().max() / y_k.abs().max()):.3g}", flush=True)
+    del csr, y_lib, y_k
+    for (K_, R, _), c in zip(plan.slab_meta, calls):
+        ms = cuda_ms(c, reps, sync)
+        bound = (K_ * R * (ib + 4) + 4 * R) / bw * 1e3
+        print(f"    slab K={K_} R={R} split {S.sell_split(K_, R)}: {ms:.4f} ms "
+              f"(bound {bound:.4f} ms without x)", flush=True)
+
+    pack, vals = bc._packed(torch.float32)
+    B, m_b, n_b = bc.shape
+    rows_b = sum(R for _, R, _ in pack.plan.slab_meta)
+    slots_b = pack.plan.stored_slots
+    X = torch.randn((B, n_b), dtype=torch.float32, device=dev)
+    Ybuf = torch.empty((B, rows_b), dtype=torch.float32, device=dev)
+    slabs_b = tuple(zip(pack.idx_slabs, vals))
+    calls_b = slab_calls(slabs_b, pack.plan.slab_meta, X, Ybuf, S.sell_spmv_slab_batched)
+    ib = pack.idx_slabs[0].element_size()
+    r = t["sell_spmv_slab_batched"] = dict(
+        ms=cuda_ms(lambda: [c() for c in calls_b], reps, sync),
+        plain_ms=cuda_ms(lambda: [S.sell_spmv_slab_batched_plain(it, vt, X) for it, vt in slabs_b],
+                         2, sync),
+        bytes=slots_b * ib + B * (4 * slots_b + 4 * (n_b + rows_b)), ops=2 * B * slots_b,
+        library_ms=None,
+    )
+    try:
+        crow = torch.as_tensor(bc.pattern.indptr.astype(np.int64), device=dev)
+        col = torch.as_tensor(bc.pattern.indices.astype(np.int64), device=dev)
+        Ab = torch.sparse_csr_tensor(crow.expand(B, -1).contiguous(), col.expand(B, -1).contiguous(),
+                                     bc.values, size=(B, m_b, n_b))
+        X3 = X[:, :, None]
+        Yl, Yk = torch.bmm(Ab, X3)[:, :, 0], bc.matvec(X)
+        r["library_ms"] = cuda_ms(lambda: torch.bmm(Ab, X3), reps, sync)
+        print(f"  batched library (3-D torch.sparse_csr_tensor, torch.bmm) vs kernel path: max "
+              f"|diff| / max |y| = {float((Yl - Yk).abs().max() / Yk.abs().max()):.3g}", flush=True)
+        del Ab, Yl, Yk
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        print(f"  batched library call (3-D torch.sparse_csr_tensor, torch.bmm) does not run: "
+              f"{type(e).__name__}: {e}", flush=True)
+    for name, r in t.items():
+        byte_ms, op_ms = r["bytes"] / bw * 1e3, r["ops"] / flops * 1e3
+        r["bound_ms"] = max(byte_ms, op_ms)
+        r["bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
+    return t
+
+
+def device_share(label, fn):
+    """One call of ``fn`` under torch.profiler: the card's busy share (the
+    sum of CUDA kernel times over the host wall time of the call, which
+    the profiler's own host cost stretches) and the kernels that take most
+    of it, summed by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    busy_us = sum(e.self_device_time_total for e in kern)
+    top = "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in kern[:6])
+    print(f"  profile {label}: wall {wall_us / 1e3:.3f} ms, kernels {busy_us / 1e3:.3f} ms, busy "
+          f"share {busy_us / wall_us:.3f}; by kernel: {top}", flush=True)
+    return busy_us / wall_us
+
+
+def run(dev: str = "cuda", grid: int = 6000, small_grid: int = 1000, skew_m: int = 2**21,
+        batch_m: int = 2**16, lanes: int = 64) -> dict:
     import torch
     import sparse_tpu_torch as sparse
     from sparse_tpu_torch.kernels import _build
     from sparse_tpu_torch.kernels import cg_dia as C
     from sparse_tpu_torch.kernels import dia_spmv as D
+    from sparse_tpu_torch.kernels import sell_spmv as S
 
+    torch.manual_seed(0)
     card = card_line() if dev == "cuda" else "cpu"
     name = torch.cuda.get_device_name(0) if dev == "cuda" else "cpu"
     print(f"phase 1: card {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
@@ -446,24 +961,47 @@ def run(dev: str = "cuda", grid: int = 6000, small_grid: int = 1000) -> dict:
     err_spmv = check_dia_spmv(dev, lap)
     err_a, err_b, cg_state = check_cg_kernels(dev, lap)
     del lap_dia, lap
+    t0 = time.perf_counter()
+    skew_s, lanes_s = skewed_degree_csr(skew_m), skewed_degree_csr(batch_m)
+    host_build_s = time.perf_counter() - t0
+    print(f"  skewed_degree_csr({skew_m}) and ({batch_m}) built on the host in {host_build_s:.2f} s",
+          flush=True)
+    errs = check_sell_kernels(dev, skew_s, lanes_s, lanes)
+    errs.update({"dia_spmv_packed": err_spmv, "cg_kernel_a": err_a, "cg_kernel_b": err_b})
 
-    counters = (D.dia_spmv_packed, C.cg_kernel_a, C.cg_kernel_b)
-    for fn in counters:
-        fn.launches = 0
-    A, out = main_path(dev, grid, small_grid)
-    launches = {fn.__name__: fn.launches for fn in counters}
-    print(f"  launches on the main path: {launches}", flush=True)
-    for k, v in launches.items():
-        check(v > 0, f"{k} launched on the main path ({v} times)")
-    return dict(card=card, name=name, A=A, out=out, launches=launches,
-                errs={"dia_spmv_packed": err_spmv, "cg_kernel_a": err_a, "cg_kernel_b": err_b},
-                cg_state=cg_state)
+    # each path runs with every launch counter at 0 and is read just after
+    counters = (D.dia_spmv_packed, C.cg_kernel_a, C.cg_kernel_b, S.sell_spmv_slab,
+                S.sell_spmv_slab_batched)
+    launches = {}
+
+    def drive(path, kernels, fn, *args):
+        for c in counters:
+            c.launches = 0
+        res = fn(*args)
+        seen = {c.__name__: c.launches for c in counters}
+        print(f"  launches on the {path}: {seen}", flush=True)
+        for k in kernels:
+            check(seen[k] > 0, f"{k} launched on the {path} ({seen[k]} times)")
+            launches[k] = seen[k]
+        return res
+
+    A, out = drive("main path", ("dia_spmv_packed", "cg_kernel_a", "cg_kernel_b"),
+                   main_path, dev, grid, small_grid)
+    A_gen, prep, out_gen = drive("general path", ("sell_spmv_slab",), general_path, dev, skew_s)
+    out_gen["host_build_s"] = host_build_s
+    bc, _X, out_b = drive("batched path", ("sell_spmv_slab_batched",), batched_path, dev, lanes_s,
+                          lanes)
+    return dict(card=card, name=name, A=A, out=out, out_gen=out_gen, out_b=out_b, A_gen=A_gen,
+                prep=prep, bc=bc, launches=launches, errs=errs, cg_state=cg_state)
 
 
 _SOURCES = {
     "dia_spmv_packed": ("sparse_tpu_torch/csrc/dia_spmv.cu", "sparse_tpu/kernels/dia_spmv.py:207"),
     "cg_kernel_a": ("sparse_tpu_torch/csrc/cg_dia.cu", "sparse_tpu/kernels/cg_dia.py:501"),
     "cg_kernel_b": ("sparse_tpu_torch/csrc/cg_dia.cu", "sparse_tpu/kernels/cg_dia.py:536"),
+    "sell_spmv_slab": ("sparse_tpu_torch/csrc/sell_spmv.cu", "sparse_tpu/kernels/sell_spmv.py:226"),
+    "sell_spmv_slab_batched": ("sparse_tpu_torch/csrc/sell_spmv.cu",
+                               "sparse_tpu/kernels/sell_spmv.py:293"),
 }
 
 
@@ -488,6 +1026,19 @@ def main() -> int:
     print(f"phase 4: times on {res['card']} (peaks used: {bw / 1e12:g} TB/s, "
           f"{flops / 1e12:g} TFLOP/s fp32)", flush=True)
     t = timings("cuda", res["A"], res["cg_state"], bw, flops)
+    t.update(sell_timings("cuda", res["A_gen"], res["prep"], res["bc"], bw, flops))
+    from sparse_tpu_torch import linalg
+    from sparse_tpu_torch.batch import batched_cg
+
+    A_gen, bc = res["A_gen"], res["bc"]
+    bg = torch.randn((A_gen.shape[0],), device="cuda")
+    Bb = torch.randn((bc.batch, bc.shape[2]), device="cuda")
+    res["out_gen"]["busy_share_cg"] = device_share(
+        "20 CG iterations, general path",
+        lambda: linalg.cg(A_gen, bg, maxiter=20, tol=1e-30, conv_test_iters=200))
+    res["out_b"]["busy_share_batched_cg"] = device_share(
+        f"20 batched CG iterations, {bc.batch} lanes",
+        lambda: batched_cg(bc, Bb, tol=0.0, maxiter=20, conv_test_iters=200))
     kernels = []
     for name, r in t.items():
         lib = r["library_ms"]
@@ -509,7 +1060,14 @@ def main() -> int:
           f"bound {t['cg_kernel_a']['bound_ms'] + t['cg_kernel_b']['bound_ms']:.4f} ms)", flush=True)
     print(f"  tolerance cg at 1000^2: {o['small_cg_iters']} iterations in "
           f"{o['small_cg_s']:.4f} s, true relative residual {o['small_rel_residual']:.3g}", flush=True)
-    print(json.dumps({"main_path": {k: v for k, v in o.items()}}), flush=True)
+    g, bo = res["out_gen"], res["out_b"]
+    print(f"  general path at m = {g['m']}: first A @ x {g['first_spmv_s']:.3f} s (host pack "
+          f"included), A @ x {t['sell_spmv_slab']['a_at_x_ms']:.4f} ms, CG {g['cg_iters_per_s']:.2f} "
+          f"iters/s, tolerance cg {g['tol_cg_iters']} iterations in {g['tol_cg_s']:.4f} s", flush=True)
+    print(f"  batched: {bo['batched_solves_per_s']:.2f} solves/s ({bo['lanes']} lanes) vs "
+          f"{bo['sequential_solves_per_s']:.2f} solves/s one lane after another", flush=True)
+    g["a_at_x_ms"] = t["sell_spmv_slab"].pop("a_at_x_ms")
+    print(json.dumps({"main_path": o, "general_path": g, "batched_path": bo}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(res["card"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,13 +34,25 @@ def _env_int(name: str, default: int) -> int:
 @dataclass
 class Settings:
     # CSR SpMV dispatch: 'auto' and 'pallas' run banded matrices through
-    # the prepared DIA kernel (kernels/dia_spmv.py); 'ell' / 'segment'
-    # force those plain paths; 'sell' is not ported yet (slice 2)
+    # the prepared DIA kernel (kernels/dia_spmv.py); 'sell' forces the
+    # prepared SELL-C-sigma kernel (kernels/sell_spmv.py), which 'pallas'
+    # takes for every other matrix and 'auto' for skewed row profiles;
+    # 'ell' / 'segment' force those plain paths
     spmv_mode: str = field(
         default_factory=lambda: os.environ.get("SPARSE_TPU_TORCH_SPMV_MODE", "auto")
     )
     # max row length (relative to the mean) at which 'auto' takes ELL
     ell_max_ratio: float = 4.0
+    # SELL-C-sigma packing geometry (kernels/sell_spmv.py): chunk height C,
+    # degree-sorting window sigma (0 = one global window) and the number of
+    # distinct chunk widths beyond which widths round up to powers of two
+    sell_chunk: int = field(
+        default_factory=lambda: max(_env_int("SPARSE_TPU_TORCH_SELL_C", 8), 1)
+    )
+    sell_sigma: int = field(
+        default_factory=lambda: _env_int("SPARSE_TPU_TORCH_SELL_SIGMA", 4096)
+    )
+    sell_max_slabs: int = 16
     # weak-ref keyed LRU of prepared operators (plan_cache.py)
     plan_cache: bool = field(
         default_factory=lambda: _env_bool("SPARSE_TPU_TORCH_PLAN_CACHE", True)

@@ -1,22 +1,23 @@
 """CSR sparse array (``sparse_tpu/csr.py``'s main-path subset).
 
 SpMV dispatch keeps the reference's order (``csr.py:398-446``): banded
-matrices (``_maybe_dia``) take the prepared DIA kernel, then the ELL
-gather path, then the segment path. The SELL-C-sigma path is not ported
-yet (slice 2); SpGEMM and the elementwise products wait as well.
+matrices (``_maybe_dia``) take the prepared DIA kernel, then the prepared
+SELL-C-sigma kernel (``_maybe_sell``), then the ELL gather path, then the
+segment path. SpGEMM and the elementwise products are not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import plan_cache
 from .base import SparseArray
 from .config import settings
 from .ops import conv, spmv as spmv_ops
 from .ops.coords import expand_rows
 from .utils import as_tensor, host_int, resolve_device
 
-_SPMV_MODES = ("auto", "pallas", "ell", "segment")
+_SPMV_MODES = ("auto", "pallas", "sell", "ell", "segment")
 
 
 class csr_array(SparseArray):
@@ -129,11 +130,45 @@ class csr_array(SparseArray):
         self._dia = (planes, tuple(int(o) for o in offsets))
         return self._dia
 
-    def prepare(self):
-        """Warm the layouts eagerly (banded detection, ELL); returns self."""
-        if settings.spmv_mode in ("auto", "pallas"):
-            self._maybe_dia()
-        self._maybe_ell()
+    def _maybe_sell(self):
+        """The plan-cached SELL-C-sigma operator (``kernels/sell_spmv.py``),
+        or None. Under ``spmv_mode`` 'sell' and 'pallas' it applies to every
+        matrix with nonzeros; under 'auto' only where the ELL gate declines
+        (max row length beyond ``ell_max_ratio`` x the mean). One host pack
+        on first use, onto this matrix's device."""
+        mode = settings.spmv_mode
+        if mode not in ("auto", "sell", "pallas"):
+            return None
+        if self.shape[0] == 0 or self.nnz == 0:
+            return None
+        if mode == "auto":
+            mean = max(self.nnz / self.shape[0], 1.0)
+            if self._ell_width() <= settings.ell_max_ratio * mean:
+                return None  # tight profile: the ELL path takes it
+
+        def build():
+            from .kernels.sell_spmv import PreparedCSR
+
+            return PreparedCSR(self.indptr, self.indices, self.data, self.shape,
+                               device=self.device)
+
+        return plan_cache.get(self, "sell", build)
+
+    def prepare(self, mode: str | None = None):
+        """Warm the layouts of the current (or given) ``spmv_mode`` eagerly:
+        banded detection, the SELL pack (only with the plan cache on, where
+        it has somewhere to live), ELL. Returns self."""
+        prev = settings.spmv_mode
+        try:
+            if mode is not None:
+                settings.spmv_mode = mode
+            if settings.spmv_mode in ("auto", "pallas"):
+                self._maybe_dia()
+            if settings.plan_cache:
+                self._maybe_sell()
+            self._maybe_ell()
+        finally:
+            settings.spmv_mode = prev
         return self
 
     # -- products ------------------------------------------------------------
@@ -150,10 +185,6 @@ class csr_array(SparseArray):
 
     def _spmv(self, x):
         mode = settings.spmv_mode
-        if mode == "sell":
-            raise NotImplementedError(
-                "spmv_mode='sell' (the SELL-C-sigma kernel) is ported in slice 2"
-            )
         if mode not in _SPMV_MODES:
             raise ValueError(f"unknown spmv_mode {mode!r}")
         if mode in ("auto", "pallas"):
@@ -167,6 +198,9 @@ class csr_array(SparseArray):
                 from .ops.dia_spmv import dia_spmv_torch
 
                 return dia_spmv_torch(dia[0], dia[1], x, self.shape)
+        prep = self._maybe_sell()
+        if prep is not None:
+            return prep(x)
         ell = self._maybe_ell()
         if ell is not None:
             return spmv_ops.csr_spmv_ell(ell[0], ell[1], x)
@@ -176,6 +210,9 @@ class csr_array(SparseArray):
         ell = self._maybe_ell()
         if ell is not None:
             return spmv_ops.csr_spmm_ell(ell[0], ell[1], B)
+        prep = self._maybe_sell()  # skewed profiles: plain slab gathers
+        if prep is not None:
+            return prep.matmat(B)
         return spmv_ops.csr_spmm_segment(self.indptr, self.indices, self.data, B, self.shape[0])
 
     def matvec(self, x):

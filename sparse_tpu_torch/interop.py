@@ -3,7 +3,8 @@
 ``from_numpy_parts`` rebuilds a port array from the numpy buffers of
 another implementation's matrix, unchanged: the index and value dtypes
 stay as given, so two packages fed the same buffers compute on the same
-data.
+data. ``prepared_csr_from_numpy`` does the same for a SELL pack and
+``batched_csr_from_numpy`` for a pattern-shared value stack.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from .coo import coo_array
 from .csc import csc_array
 from .csr import csr_array
 from .dia import dia_array
-from .utils import as_tensor
+from .utils import as_tensor, resolve_device
 
 
 def from_numpy_parts(fmt: str, parts: dict, shape, device=None):
@@ -33,3 +34,28 @@ def from_numpy_parts(fmt: str, parts: dict, shape, device=None):
     if fmt == "dia":
         return dia_array((t["data"], parts["offsets"]), shape=shape)
     raise ValueError(f"unknown format {fmt!r}")
+
+
+def prepared_csr_from_numpy(slab_meta, geometry, slabs, pos, device=None):
+    """A :class:`~sparse_tpu_torch.kernels.sell_spmv.PreparedCSR` from an
+    existing SELL pack: ``slab_meta`` as in ``SellPlan``, ``geometry`` =
+    ``(m, n, C, sigma, zero_rows, nnz)``, ``slabs`` a sequence of
+    ``(idx_t, val_t)`` numpy pairs and ``pos`` the row map, all unchanged."""
+    from .kernels.sell_spmv import PreparedCSR, SellPlan
+
+    dev = resolve_device(device)
+    m, n, C, sigma, zero_rows, nnz = geometry
+    plan = SellPlan(m, n, C, sigma, slab_meta, zero_rows, nnz)
+    return PreparedCSR.from_parts(
+        plan, tuple((as_tensor(it, dev), as_tensor(vt, dev)) for it, vt in slabs),
+        as_tensor(pos, dev),
+    )
+
+
+def batched_csr_from_numpy(indptr, indices, shape, values, device=None):
+    """A :class:`~sparse_tpu_torch.batch.BatchedCSR` over the host pattern
+    ``(indptr, indices, shape)`` with the ``[B, nnz]`` value stack unchanged."""
+    from .batch.operator import BatchedCSR, SparsityPattern
+
+    return BatchedCSR(SparsityPattern(indptr, indices, shape),
+                      as_tensor(values, resolve_device(device)))

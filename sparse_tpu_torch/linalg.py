@@ -12,6 +12,11 @@
 * every other solve takes ``_cg_device_loop``: a torch loop whose scalars
   stay on the device, read by the host only at the test points;
 * a ``callback`` selects ``_cg_host_loop``.
+
+``batched_cg``/``batched_bicgstab``/``batched_gmres`` solve B systems over
+one sparsity pattern (``sparse_tpu_torch.batch.krylov``), and
+``make_linear_operator`` takes a batched operator as its block-diagonal
+view.
 """
 
 from __future__ import annotations
@@ -254,6 +259,11 @@ def make_linear_operator(A) -> LinearOperator:
         return A
     if isinstance(A, SparseArray):
         return _SparseMatrixLinearOperator(A)
+    from .batch.operator import BatchedOperator
+
+    if isinstance(A, BatchedOperator):
+        # B independent systems are one (B*m, B*n) block-diagonal system
+        return A.as_block_operator()
     return _DenseMatrixLinearOperator(A)
 
 
@@ -268,9 +278,18 @@ def cg_axpby(y, x, a, b, isalpha=True, negate=False):
     return y + s * x if isalpha else y * s + x
 
 
+# single-precision dot products accumulate in double precision
+_DOT_ACC = {torch.float32: torch.float64, torch.complex64: torch.complex128}
+
+
 def _vdot(a, b):
-    """Inner product with the first argument conjugated (np.vdot)."""
-    return torch.vdot(a, b)
+    """Inner product over the last axis, first argument conjugated
+    (np.vdot for vectors). Single-precision products are summed in double
+    precision and rounded once, so the result does not depend on the order
+    of the reduction: a lane of a batched solve (``batch.krylov``) gets the
+    scalars of the lone solve bit for bit."""
+    prod = torch.conj(a) * b
+    return torch.sum(prod, dim=-1, dtype=_DOT_ACC.get(prod.dtype, prod.dtype)).to(prod.dtype)
 
 
 def _operator_device(A) -> torch.device:
@@ -425,3 +444,30 @@ def _cg_host_loop(A, b, x, tol, maxiter, M, callback, conv_test_iters):
         ) < tol:
             break
     return x, iters
+
+
+# ---------------------------------------------------------------------------
+# Batched entry points (sparse_tpu_torch.batch.krylov): B systems sharing
+# one sparsity pattern, one masked loop with per-lane convergence
+# ---------------------------------------------------------------------------
+def batched_cg(A, b, **kwargs):
+    """Batched CG; see :func:`sparse_tpu_torch.batch.krylov.batched_cg`."""
+    from .batch.krylov import batched_cg as _impl
+
+    return _impl(A, b, **kwargs)
+
+
+def batched_bicgstab(A, b, **kwargs):
+    """Batched BiCGStab; see
+    :func:`sparse_tpu_torch.batch.krylov.batched_bicgstab`."""
+    from .batch.krylov import batched_bicgstab as _impl
+
+    return _impl(A, b, **kwargs)
+
+
+def batched_gmres(A, b, **kwargs):
+    """Batched restarted GMRES; see
+    :func:`sparse_tpu_torch.batch.krylov.batched_gmres`."""
+    from .batch.krylov import batched_gmres as _impl
+
+    return _impl(A, b, **kwargs)

@@ -3,6 +3,12 @@
 Segment path: per-nnz products reduced by row with ``index_add_``; ELL
 path: one gather per padded-row plane plus adds. Neither is a TPU kernel
 in the reference (both are XLA gathers there), so both stay plain torch.
+
+SELL path (``csr_spmv_sell`` and its batched and SpMM forms): one gather
+per plane of each plane-major ``[K, R]`` slab, summed over k in plane
+order. These are the plain versions of the SELL kernels
+(``kernels/sell_spmv.py``, ``csrc/sell_spmv.cu``) and the path CPU
+tensors take.
 """
 
 from __future__ import annotations
@@ -35,6 +41,99 @@ def csr_spmv_ell(ell_indices, ell_data, x):
     for kk in range(1, k):
         acc = acc + ell_data[:, kk] * x[ell_indices[:, kk]]
     return acc
+
+
+def _sell_slab_spmv(idx_t, val_t, x):
+    """y_slab = A_slab @ x on one SELL slab of plane-major ``[K, R]``
+    index/value planes: ``acc = 0; acc += val[k] * x[idx[k]]`` for k in
+    plane order."""
+    out_dt = _result_dtype(val_t, x)
+    acc = torch.zeros((idx_t.shape[1],), dtype=out_dt, device=x.device)
+    for kk in range(idx_t.shape[0]):
+        acc = acc + val_t[kk].to(out_dt) * x[idx_t[kk]].to(out_dt)
+    return acc
+
+
+def _sell_out_dtype(slabs, x):
+    return torch.promote_types(slabs[0][1].dtype if slabs else x.dtype, x.dtype)
+
+
+def csr_spmv_sell(slabs, pos, x, zero_rows: int):
+    """y = A @ x on the SELL-C-sigma layout: per-slab plane gathers, the
+    slabs and the ``zero_rows`` all-empty rows concatenated in packed
+    order, then gathered back to row order by ``pos``."""
+    out_dt = _sell_out_dtype(slabs, x)
+    parts = [_sell_slab_spmv(it, vt, x) for it, vt in slabs]
+    if zero_rows:
+        parts.append(torch.zeros((zero_rows,), dtype=out_dt, device=x.device))
+    if not parts:  # empty matrix: pos is empty too
+        return torch.zeros(pos.shape, dtype=out_dt, device=x.device)
+    return torch.cat(parts)[pos]
+
+
+def csr_spmm_sell(slabs, pos, B, zero_rows: int):
+    """C = A @ B (dense ``[n, nB]``) on the SELL layout: per-slab row
+    gathers of B accumulated in plane order, then the ``pos`` gather."""
+    out_dt = _sell_out_dtype(slabs, B)
+    nB = B.shape[1]
+    parts = []
+    for it, vt in slabs:
+        acc = torch.zeros((it.shape[1], nB), dtype=out_dt, device=B.device)
+        for kk in range(it.shape[0]):
+            acc = acc + vt[kk].to(out_dt)[:, None] * B[it[kk]].to(out_dt)
+        parts.append(acc)
+    if zero_rows:
+        parts.append(torch.zeros((zero_rows, nB), dtype=out_dt, device=B.device))
+    if not parts:
+        return torch.zeros((pos.shape[0], nB), dtype=out_dt, device=B.device)
+    return torch.cat(parts)[pos]
+
+
+def _sell_slab_spmv_batched(idx_t, val_bt, X):
+    """Y_slab[b] = A_b,slab @ X[b]: shared ``[K, R]`` index planes, value
+    planes ``[B, K, R]``, X ``[B, n]``; summed over k in plane order."""
+    out_dt = _result_dtype(val_bt, X)
+    acc = torch.zeros((X.shape[0], idx_t.shape[1]), dtype=out_dt, device=X.device)
+    for kk in range(idx_t.shape[0]):
+        acc = acc + val_bt[:, kk].to(out_dt) * X[:, idx_t[kk]].to(out_dt)
+    return acc
+
+
+def csr_spmv_sell_batched(idx_slabs, val_slabs, pos, X, zero_rows: int):
+    """Y[b] = A_b @ X[b] on the SELL layout with one shared pattern:
+    ``idx_slabs``/``pos``/``zero_rows`` are pattern state, ``val_slabs``
+    the stacked ``[B, K, R]`` value planes, X ``[B, n]``."""
+    out_dt = torch.promote_types(val_slabs[0].dtype if val_slabs else X.dtype, X.dtype)
+    Bn = X.shape[0]
+    parts = [_sell_slab_spmv_batched(it, vt, X) for it, vt in zip(idx_slabs, val_slabs)]
+    if zero_rows:
+        parts.append(torch.zeros((Bn, zero_rows), dtype=out_dt, device=X.device))
+    if not parts:
+        return torch.zeros((Bn, pos.shape[0]), dtype=out_dt, device=X.device)
+    return torch.cat(parts, dim=1)[:, pos]
+
+
+def csr_spmm_sell_batched(idx_slabs, val_slabs, pos, X, zero_rows: int):
+    """C[b] = A_b @ X[b] (dense ``[B, n, k]``) on the shared-pattern SELL
+    layout, lane by lane."""
+    return torch.stack([
+        csr_spmm_sell(tuple((it, vt[b]) for it, vt in zip(idx_slabs, val_slabs)),
+                      pos, X[b], zero_rows)
+        for b in range(X.shape[0])
+    ])
+
+
+def csr_spmv_segment_batched(indptr, indices, values, X, m: int):
+    """Y[b] = A_b @ X[b] via the segment path, values ``[B, nnz]`` over one
+    shared pattern: the batched path that needs no pack."""
+    nnz = values.shape[1]
+    out_dt = _result_dtype(values, X)
+    Y = torch.zeros((X.shape[0], m), dtype=out_dt, device=X.device)
+    if nnz == 0:
+        return Y
+    rows = expand_rows(indptr, nnz)
+    prod = values.to(out_dt) * X[:, indices].to(out_dt)
+    return Y.index_add_(1, rows, prod)
 
 
 def csr_spmm_segment(indptr, indices, data, B, m: int):

@@ -61,6 +61,18 @@ def get(obj, kind: str, build):
     return plan
 
 
+def lookup(obj, kind: str):
+    """The cached plan for ``(obj, kind)``, or None; never builds. Counts a
+    hit or a miss like :func:`get`."""
+    with _LOCK:
+        if settings.plan_cache and (id(obj), kind) in _ENTRIES:
+            _ENTRIES.move_to_end((id(obj), kind))
+            _COUNTS["hits"] += 1
+            return _ENTRIES[(id(obj), kind)]
+        _COUNTS["misses"] += 1
+    return None
+
+
 def stats() -> dict:
     with _LOCK:
         return {**_COUNTS, "size": len(_ENTRIES)}

@@ -40,6 +40,13 @@ def as_tensor(x, device=None, dtype=None) -> torch.Tensor:
     return x.to(device=dev, dtype=dtype)
 
 
+def host_array(a) -> np.ndarray:
+    """A tensor's values (fetched to the host) or any array-like as numpy."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
 def host_int(x) -> int:
     """One device -> host fetch of an integer scalar."""
     return int(x.item()) if isinstance(x, torch.Tensor) else int(x)

@@ -104,3 +104,127 @@ def test_dtype_without_kernel_raises_on_card():
     A = st.diags([np.ones(64, np.complex64)], [0], dtype=np.complex64)
     with pytest.raises(TypeError, match="no CUDA kernel"):
         A @ torch.ones(64, dtype=torch.complex64, device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# SELL-C-sigma kernels (csrc/sell_spmv.cu)
+# ---------------------------------------------------------------------------
+def _slab(K, R, dtype, itype, seed, lanes=None):
+    """A random [K, R] slab over x of length n = 3R + 7; ``lanes`` stacks
+    value planes [lanes, K, R]."""
+    rng = np.random.default_rng(seed)
+    n = 3 * R + 7
+    idx = torch.tensor(rng.integers(0, n, (K, R)), dtype=itype, device="cuda")
+    vshape = (K, R) if lanes is None else (lanes, K, R)
+    val = torch.tensor(rng.standard_normal(vshape), dtype=dtype, device="cuda")
+    xshape = (n,) if lanes is None else (lanes, n)
+    x = torch.tensor(rng.standard_normal(xshape), dtype=dtype, device="cuda")
+    return idx, val, x
+
+
+def _hold_against_plain(got, want, idx, val, x, narrow):
+    """Narrow slabs equal the plain version bit for bit; split-K slabs sum
+    in another fixed order: within 4 eps sum_k |val * x| per row."""
+    if narrow:
+        assert torch.equal(got, want)
+        return
+    xg = x[..., idx] if x.ndim == 1 else x[:, idx]  # [K, R] or [B, K, R]
+    mag = (val.abs() * xg.abs()).sum(dim=-2)
+    assert bool(torch.all((got - want).abs() <= 4 * torch.finfo(val.dtype).eps * mag))
+
+
+SLABS = [(5, 1000), (40, 300), (64, 8), (4096, 64), (8192, 128)]
+
+
+@pytest.mark.parametrize("itype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K_,R", SLABS)
+def test_sell_slab_kernel_vs_plain(K_, R, dtype, itype):
+    from sparse_tpu_torch.kernels import sell_spmv as S
+
+    idx, val, x = _slab(K_, R, dtype, itype, seed=K_ + R)
+    before = S.sell_spmv_slab.launches
+    y = S.sell_spmv_slab(idx, val, x)
+    torch.cuda.synchronize()
+    assert S.sell_spmv_slab.launches == before + 1
+    narrow = S.sell_split(K_, R)[1:] == (1, 1)
+    _hold_against_plain(y, S.sell_spmv_slab_plain(idx, val, x), idx, val, x, narrow)
+    assert torch.equal(y, S.sell_spmv_slab(idx, val, x))  # fixed order: repeats equal
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K_,R", SLABS)
+def test_sell_slab_batched_kernel_vs_plain(K_, R, dtype):
+    from sparse_tpu_torch.kernels import sell_spmv as S
+
+    idx, val, X = _slab(K_, R, dtype, torch.int32, seed=K_ * R, lanes=3)
+    before = S.sell_spmv_slab_batched.launches
+    Y = S.sell_spmv_slab_batched(idx, val, X)
+    torch.cuda.synchronize()
+    assert S.sell_spmv_slab_batched.launches == before + 1
+    narrow = S.sell_split(K_, R)[1:] == (1, 1)
+    _hold_against_plain(Y, S.sell_spmv_slab_batched_plain(idx, val, X), idx, val, X, narrow)
+
+
+def test_sell_complex_raises_on_card():
+    import scipy.sparse as sp
+
+    from sparse_tpu_torch.batch import BatchedCSR
+
+    st.settings.spmv_mode = "sell"
+    try:
+        s = sp.random(50, 50, density=0.2, random_state=1, format="csr").astype(np.complex64)
+        A = st.csr_array(s)
+        with pytest.raises(TypeError, match="no CUDA kernel"):
+            A @ torch.ones(50, dtype=torch.complex64, device="cuda")
+        bc = BatchedCSR(s, torch.tensor(np.stack([s.data, s.data]), device="cuda"))
+        with pytest.raises(TypeError, match="no CUDA kernel"):
+            bc.matvec(torch.ones((2, 50), dtype=torch.complex64, device="cuda"))
+    finally:
+        st.settings.spmv_mode = "auto"
+
+
+def _skewed_csr(m):
+    import chip_smoke
+
+    return chip_smoke.skewed_degree_csr(m)
+
+
+def test_auto_skewed_matrix_launches_sell_kernel():
+    from sparse_tpu_torch import plan_cache
+    from sparse_tpu_torch.kernels import sell_spmv as S
+
+    s = _skewed_csr(20000)
+    A = st.csr_array(s)
+    x = torch.rand(20000, device="cuda")
+    before = S.sell_spmv_slab.launches
+    y = A @ x
+    prep = plan_cache.lookup(A, "sell")
+    assert prep is not None
+    assert S.sell_spmv_slab.launches == before + len(prep.plan.slab_meta)
+    want = s.astype(np.float64) @ x.double().cpu().numpy()
+    mag = abs(s).astype(np.float64) @ x.double().cpu().numpy()
+    rowlen = np.diff(s.indptr) + 2
+    err = np.abs(y.double().cpu().numpy() - want)
+    assert np.all(err <= rowlen * np.finfo(np.float32).eps * mag)
+
+
+def test_batched_cg_launches_batched_kernel():
+    from sparse_tpu_torch.batch import BatchedCSR, batched_cg
+    from sparse_tpu_torch.kernels import sell_spmv as S
+
+    s = _skewed_csr(4096)
+    rng = np.random.default_rng(0)
+    diag = s.indices == np.repeat(np.arange(4096), np.diff(s.indptr))
+    vals = np.stack([s.data + np.float32(d) * diag for d in rng.random(4)]).astype(np.float32)
+    bc = BatchedCSR(s, torch.tensor(vals, device="cuda"))
+    b = torch.tensor(rng.standard_normal((4, 4096)), dtype=torch.float32, device="cuda")
+    tol = 1e-5 * torch.linalg.vector_norm(b, dim=1)
+    before = S.sell_spmv_slab_batched.launches
+    X, info = batched_cg(bc, b, tol=tol, maxiter=2000)
+    assert S.sell_spmv_slab_batched.launches > before
+    assert bool(info.converged.all())
+    for i in range(4):
+        xu, iu = linalg.cg(bc.lane(i), b[i], tol=float(tol[i]), maxiter=2000)
+        assert int(info.iters[i]) == iu
+        assert torch.equal(X[i], xu)  # the same SpMV sums and dots, lane by lane

@@ -116,10 +116,22 @@ def test_csr_unbanded_paths(mode):
 
 
 def test_sell_mode_waits_for_slice_2():
+    """Slice 2 ported the mode: 'sell' now runs the prepared SELL operator
+    and gives sparse_tpu's product."""
+    from sparse_tpu_torch import plan_cache
+
     st.settings.spmv_mode = "sell"
-    A = st.csr_array(sample_csr(20, 20, density=0.3, seed=2))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        A @ np.ones(20)
+    s = sample_csr(20, 20, density=0.3, seed=2)
+    A = st.csr_array(s)
+    x = np.random.default_rng(6).standard_normal(20)
+    old = jax_settings.spmv_mode
+    jax_settings.spmv_mode = "sell"
+    try:
+        want = np.asarray(sparse_tpu.csr_array(s) @ x)
+    finally:
+        jax_settings.spmv_mode = old
+    np.testing.assert_allclose((A @ x).numpy(), want, rtol=1e-12, atol=1e-12)
+    assert plan_cache.lookup(A, "sell") is not None
 
 
 @pytest.mark.parametrize("mode", ["auto", "segment"])
