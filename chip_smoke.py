@@ -5,7 +5,7 @@
 
 Needs one CUDA card, ``nvcc`` and the repository checkout beside this file;
 exits non-zero without them, and on any failed check. Phases, in the order
-they run (1, 2a-2c, 3, 5, 6, 4):
+they run (1, 2a-2e, 3, 5, 6, 7, 8, 4):
 
 1. card name and power limit; build the CUDA kernels (csrc/*.cu) and time it;
 2. each kernel against its plain torch version on the card: (a, b) the DIA
@@ -13,7 +13,12 @@ they run (1, 2a-2c, 3, 5, 6, 4):
    Laplacian) and on the edge cases of tests/test_dia_spmv.py, one fused
    solve run twice bit-identical; (c) both SELL-C-sigma kernels in f32 and
    f64 on tests/test_torch_sell.py's edge cases and on the full-size packs
-   of phases 5 and 6, and a complex operand must raise;
+   of phases 5 and 6, and a complex operand must raise; (d) the
+   column-indexed DIA SpMV, bit for bit in f32 and f64, on the edge cases,
+   a wide matrix and the 6000^2 planes; (e) the one-pass CG kernel at
+   6000^2 with f32, bf16 and f64 planes: one iteration (vectors bit for
+   bit, dots within their summation bound), 20 iterations, bf16 planes
+   equal to f32 planes; a dtype with no kernel must raise;
 3. the main path, as examples/pde.py drives it, at the reference's per-GPU
    size (6000^2 = 36e6 unknowns, float32): diags -> tocsc -> .T -> tocsr,
    y = A @ ones against a host f64 reference on sampled rows, a 300-iteration
@@ -27,12 +32,20 @@ they run (1, 2a-2c, 3, 5, 6, 4):
    pattern: every lane converges with its true residual held in f64 and
    the iteration count of linalg.cg on that lane alone; solves/s against
    the lanes solved one after another;
+7. the flagship Poisson step (``models.poisson``: ``poisson_cg_state_dia``,
+   ``make_cg_step_dia``, ``cg_dia``) at 6000^2 f32 for 300 iterations with
+   no host sync inside the loop (``torch.cuda.set_sync_debug_mode("error")``),
+   and at the reference entry point's size 64 against the CPU; iters/s and
+   the true residual in f64;
+8. bench.py::run_fused's sweep at 6000^2, 300 iterations: two-pass and
+   one-pass, f32 and bf16 planes, each gated on its final rho (finite, at
+   most 10x the two-pass rho) and timed best of 3;
 4. times from CUDA events: each kernel, its plain version, its bound, and
    where one exists the PyTorch library call computing the same function.
 
-Each of the three paths (3, 5, 6) runs with every kernel's launch counter
-set to 0 just before it and read just after; each kernel of the path must
-have launched.
+Each of the five paths (3, 5, 6, 7, 8) runs with every kernel's launch
+counter set to 0 just before it and read just after; each kernel of the
+path must have launched.
 
 The last lines are one JSON object listing the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -217,7 +230,7 @@ def check_dia_spmv(dev, lap):
     for m, n, offs in spmv_cases():
         data = torch.tensor(rng.standard_normal((len(offs), n)).astype(np.float32), device=dev)
         cases.append((f"{m}x{n} offsets {offs}", data, offs, (m, n)))
-    cases.append(("6000^2 Laplacian", lap[0], lap[1], lap[2]))
+    cases.append((f"{lap[2][0]}-row Laplacian", lap[0], lap[1], lap[2]))
     worst = 0.0
     for label, data, offs, shape in cases:
         plan = K.dia_plan(offs, shape)
@@ -229,7 +242,7 @@ def check_dia_spmv(dev, lap):
         err = (y - yp).abs()
         check(bool(torch.all(err <= spmv_err_bound(planes, xpad, plan))),
               f"dia_spmv {label}: max |kernel - plain| = {float(err.max()):.3g}")
-        if label.startswith("6000"):
+        if shape == lap[2]:
             worst = float(err.max())
     return worst
 
@@ -443,13 +456,182 @@ def check_sell_kernels(dev, A_s, lanes_s, lanes: int):
     for what, call in (("PreparedCSR", lambda: prep(torch.ones(60, dtype=torch.complex64, device=dev))),
                        ("BatchedCSR", lambda: bcx.matvec(torch.ones((2, 60), dtype=torch.complex64,
                                                                     device=dev)))):
-        try:
-            call()
-            raised = ""
-        except TypeError as e:
-            raised = str(e)
+        raised = raises_no_kernel(call)
         check("no CUDA kernel" in raised, f"a complex64 operand raises in {what}: {raised!r}")
     return errs
+
+
+def raises_no_kernel(call) -> str:
+    """The message of the TypeError ``call()`` raises ('' if it raises none)."""
+    try:
+        call()
+    except TypeError as e:
+        return str(e)
+    return ""
+
+
+def check_dia_direct(dev, grid: int):
+    """Phase 2d: the column-indexed DIA SpMV against its plain version, bit
+    for bit in f32 and f64, on tests/test_dia_spmv.py's cases, a wide
+    matrix (100 x 2000) and the grid^2 Laplacian planes of phase 7; a
+    dtype with no kernel must raise. Returns max |kernel - plain| at
+    grid^2 in f32."""
+    import torch
+    from sparse_tpu_torch.kernels import cg_dia as C
+    from sparse_tpu_torch.kernels import dia_spmv as D
+    from sparse_tpu_torch.models import laplacian_2d_dia
+
+    print("phase 2d: column-indexed DIA SpMV kernel vs plain", flush=True)
+    rng = np.random.default_rng(4)
+    cases = spmv_cases()[:5] + [(100, 2000, [0, 5])]
+    worst = 0.0
+    for dt in (torch.float32, torch.float64):
+        for m, n, offs in cases:
+            data = torch.tensor(rng.standard_normal((len(offs), n)), dtype=dt, device=dev)
+            x = torch.tensor(rng.standard_normal(n), dtype=dt, device=dev)
+            y, yp = D.dia_spmv_direct(data, offs, x, (m, n)), D.dia_spmv_direct_plain(data, offs, x, (m, n))
+            if not torch.equal(y, yp):
+                raise AssertionError(f"dia_spmv_direct {m}x{n} {offs} {dt}: max |kernel - plain| "
+                                     f"{float((y - yp).abs().max()):.3g}")
+        planes, offs = laplacian_2d_dia(grid, dtype=dt, device=dev)
+        N = grid * grid
+        x = torch.randn((N,), dtype=dt, device=dev)
+        y, yp = D.dia_spmv_direct(planes, offs, x, (N, N)), D.dia_spmv_direct_plain(planes, offs, x, (N, N))
+        err = float((y - yp).abs().max())
+        check(bool(torch.equal(y, yp)),
+              f"dia_spmv_direct {dt}: {len(cases)} edge cases and the {grid}^2 planes equal the plain "
+              f"version bit for bit (max err {err})")
+        if dt == torch.float32:
+            worst = err
+        del planes, x, y, yp
+    for dt in (torch.complex64, torch.float16):
+        data = torch.ones((3, 64), dtype=dt, device=dev)
+        x = torch.ones(64, dtype=dt, device=dev)
+        for what, call in (("dia_spmv_direct", lambda: D.dia_spmv_direct(data, (-1, 0, 1), x, (64, 64))),
+                           ("cg_dia_fused_onepass",
+                            lambda: C.cg_dia_fused_onepass(data, (-1, 0, 1), x, None, 64, iters=2))):
+            msg = raises_no_kernel(call)
+            check("no CUDA kernel" in msg, f"a {dt} operand raises in {what}: {msg!r}")
+    return worst
+
+
+def onepass_stepper(kernel, stream, packed, b, plan, ws=None):
+    """One-pass CG from x0 = 0 on the packed planes, as
+    ``cg_dia_fused_onepass`` sets it up (r0 = b, w0 = A r0 by the plain
+    SpMV, rho_prev = 0, alpha_prev = 1, p = s = 0): each call of the
+    returned function runs one iteration of ``kernel`` (``cgcg_kernel``
+    with ``ws``, or ``cgcg_kernel_plain``) on the ``stream`` planes and
+    swaps the r, w, s buffers, so repeated calls run the recurrence. x is
+    the function's ``x`` attribute."""
+    import torch
+    from sparse_tpu_torch.kernels import cg_dia as C
+    from sparse_tpu_torch.kernels import dia_spmv as D
+
+    r0 = C._pad_vec(b, plan)
+    w0 = C._pad_vec(D.dia_spmv_packed_plain(packed, r0, plan), plan)
+    sc = torch.zeros((4,), dtype=b.dtype, device=b.device)
+    sc[C.RHO], sc[C.MU], sc[C.ALPHA_PREV] = torch.dot(r0, r0), torch.dot(w0, r0), 1
+    r, w = [r0, torch.zeros_like(r0)], [w0, torch.zeros_like(r0)]
+    s = [torch.zeros_like(r0), torch.zeros_like(r0)]
+    p, x = torch.zeros_like(r0), torch.zeros_like(r0)
+    extra = () if ws is None else (ws,)
+
+    def step():
+        kernel(stream, r[0], w[0], s[0], p, x, r[1], w[1], s[1], sc, plan, *extra)
+        r.reverse(), w.reverse(), s.reverse()
+
+    step.x = x
+    return step
+
+
+def check_cgcg_kernel(dev, grid: int):
+    """Phase 2e: the one-pass CG kernel at the grid^2 Laplacian of phase 8.
+
+    One launch from the same random state for f32, bf16 and f64 planes:
+    p, x, r', w', s' equal the plain version bit for bit (same elementwise
+    operations, scalars formed the same way). The dots <r', r'> and
+    <w', r'> sum in other orders: the kernel's, kt = ceil(m_pad / (nblocks
+    * 256)) terms a thread in sequence, then a 256-lane tree, then each of
+    256 threads over at most 4 block partials and a 256-lane tree, is held
+    against the sum in f64 at (kt + 20) u S, u = eps / 2, S = sum |terms|
+    (the recursive-summation bound); the plain version's distance to it
+    is reported. Then 20 iterations of ``cg_dia_fused_onepass`` against
+    the plain loop (x within 1e-4 of max |x|: the dots' last-bit
+    differences move alpha and beta), f32 and bf16 planes giving the same
+    x bit for bit (the Laplacian's values are exact in bf16), for the
+    two-pass iteration too. Returns (max vector |kernel - plain| in f32,
+    the timing state)."""
+    import torch
+    from sparse_tpu_torch.kernels import cg_dia as C
+    from sparse_tpu_torch.kernels import dia_spmv as D
+    from sparse_tpu_torch.models import laplacian_2d_dia
+
+    print("phase 2e: one-pass CG kernel vs plain", flush=True)
+    N = grid * grid
+    worst, keep = 0.0, None
+    for dt, pdt in ((torch.float32, None), (torch.float32, torch.bfloat16), (torch.float64, None)):
+        planes, offs = laplacian_2d_dia(grid, dtype=dt, device=dev)
+        plan = D.dia_plan(offs, (N, N))
+        packed = D.dia_pack(planes, plan)
+        del planes
+        stream = packed if pdt is None else packed.to(pdt)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        vec = lambda: C._pad_vec(torch.randn((N,), dtype=dt, device=dev, generator=gen), plan)
+        r, w, s, p, x = vec(), vec(), vec(), vec(), vec()
+        sc = torch.tensor([2.0, 1.5, 0.7, 0.9], dtype=dt, device=dev)
+        ws = C.CgWorkspace(plan, dt, dev)
+        outs = []
+        for kernel in (True, False):
+            pk, xk, sck = p.clone(), x.clone(), sc.clone()
+            ro, wo, so = torch.zeros_like(r), torch.zeros_like(r), torch.zeros_like(r)
+            if kernel:
+                C.cgcg_kernel(stream, r, w, s, pk, xk, ro, wo, so, sck, plan, ws)
+            else:
+                C.cgcg_kernel_plain(stream, r, w, s, pk, xk, ro, wo, so, sck, plan)
+            outs.append((pk, xk, ro, wo, so, sck))
+        tag = f"{dt} vectors, {pdt or dt} planes"
+        err = max(float((a - b).abs().max()) for a, b in zip(outs[0][:5], outs[1][:5]))
+        check(all(torch.equal(a, b) for a, b in zip(outs[0][:5], outs[1][:5])),
+              f"cgcg_kernel ({tag}): p, x, r', w', s' equal the plain version bit for bit")
+        (_, _, ro, wo, _, scp), sck = outs[1], outs[0][5]
+        B, mp = plan.B, plan.m_pad
+        rm, wm = ro[B : B + mp].double(), wo[B : B + mp].double()
+        kt = -(-mp // (ws.nblocks * 256))
+        u = torch.finfo(dt).eps / 2
+        for slot, label, terms in ((C.RHO, "<r', r'>", rm * rm), (C.MU, "<w', r'>", wm * rm)):
+            exact, S = float(terms.sum()), float(terms.abs().sum())
+            dk, dp = abs(float(sck[slot]) - exact), abs(float(scp[slot]) - exact)
+            check(dk <= (kt + 20) * u * S,
+                  f"cgcg_kernel ({tag}) {label}: |kernel - f64| = {dk / (u * S):.3g} u S <= "
+                  f"(kt + 20) u S, kt = {kt} (plain: {dp / (u * S):.3g} u S; |kernel - plain| "
+                  f"{abs(float(sck[slot]) - float(scp[slot])):.3g})")
+            del terms
+        check(bool(torch.equal(sck[[C.RHO_PREV, C.ALPHA_PREV]], scp[[C.RHO_PREV, C.ALPHA_PREV]])),
+              f"cgcg_kernel ({tag}): rho_prev and alpha_prev equal the plain version")
+        if dt == torch.float32 and pdt is None:
+            worst, keep = err, (plan, packed, r[plan.B : plan.B + N].clone(), ws)
+        del outs, rm, wm
+    # 20 iterations, kernel against the plain loop, from b = r's rows
+    plan, packed, b = keep[0], keep[1], keep[2]
+    B, mp = plan.B, plan.m_pad
+    planes, offs = laplacian_2d_dia(grid, dtype=torch.float32, device=dev)
+    xk = C.cg_dia_fused_onepass(planes, offs, b, None, N, iters=20)[0].clone()
+    step = onepass_stepper(C.cgcg_kernel_plain, packed, packed, b, plan)
+    for _ in range(20):
+        step()
+    xpl = step.x[B : B + N]
+    err20 = float((xk - xpl).abs().max())
+    check(err20 <= 1e-4 * float(xpl.abs().max()),
+          f"20 one-pass iterations: max |kernel - plain| = {err20:.3g} (max |x| "
+          f"{float(xpl.abs().max()):.3g}; bound 1e-4 of it)")
+    del step
+    for fn, label in ((C.cg_dia_fused_onepass, "one-pass"), (C.cg_dia_fused, "two-pass")):
+        x32 = fn(planes, offs, b, None, N, iters=20)[0].clone()
+        xbf = fn(planes, offs, b, None, N, iters=20, plane_dtype=torch.bfloat16)[0]
+        check(bool(torch.equal(x32, xbf)), f"{label}: 20 iterations with bf16 planes give x equal "
+                                           f"to f32 planes bit for bit")
+    del planes, x32, xbf
+    return worst, keep
 
 
 # ---------------------------------------------------------------------------
@@ -768,6 +950,126 @@ def batched_path(dev, A_s, lanes: int):
 
 
 # ---------------------------------------------------------------------------
+# phases 7 and 8: the flagship Poisson step and run_fused's sweep
+# ---------------------------------------------------------------------------
+def dia_residual(planes, offsets, x, b) -> float:
+    """||b - A x|| / ||b|| in f64 (A from its DIA planes), on the card."""
+    import torch
+    from sparse_tpu_torch.ops.dia_spmv import dia_spmv_torch
+
+    N = b.shape[0]
+    b64 = b.double()
+    res = b64 - dia_spmv_torch(planes.double(), offsets, x.double(), (N, N))
+    return float(torch.linalg.vector_norm(res) / torch.linalg.vector_norm(b64))
+
+
+def flagship_path(dev, grid: int, small: int, iters: int):
+    """``__graft_entry__.entry()``'s flagship step, the port of
+    models/poisson.py: ``poisson_cg_state_dia(n)`` and ``iters`` steps of
+    ``cg_dia``, whose SpMV is the column-indexed DIA kernel, with every
+    implicit host sync an error. At ``small`` (the entry point's size) the
+    first 20 iterations are held against the same step on the CPU (1e-4 of
+    max |x|: dots in another order) and the true residual after ``iters``
+    must fall below 1e-3; at ``grid`` rho and the true residual (f64) must
+    be finite and the residual below 1e-4 (``run`` then holds it within
+    10x of phase 8's two-pass residual on the same b). Returns the
+    measurements."""
+    import torch
+    from sparse_tpu_torch.models import cg_dia, poisson_cg_state_dia
+
+    sync = torch.cuda.synchronize
+    out = {}
+    print(f"phase 7: flagship Poisson step (models.poisson.cg_dia) at {small}^2 and {grid}^2, "
+          f"{iters} iterations, float32", flush=True)
+    for n in (small, grid):
+        t0 = time.perf_counter()
+        (planes, x0, b, p0, rho0), step = poisson_cg_state_dia(n, device=dev)
+        sync()
+        build_s = time.perf_counter() - t0
+        offsets = (-n, -1, 0, 1, n)
+        cg_dia(step, planes, x0, b, p0, rho0, iters=2)  # first launches
+        sync()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            x, r, p, rho = cg_dia(step, planes, x0, b, p0, rho0, iters=iters)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        sync()
+        secs = time.perf_counter() - t0
+        rho_f = float(rho)
+        rel = dia_residual(planes, offsets, x, b)
+        tag = f"{n}^2"
+        out[tag] = dict(build_s=build_s, iters=iters, s=secs, iters_per_s=iters / secs, rho=rho_f,
+                        rel_residual=rel)
+        print(f"  {tag}: state built in {build_s:.3f} s; {iters} iterations in {secs:.4f} s "
+              f"({iters / secs:.2f} iters/s, {secs / iters * 1e3:.4f} ms an iteration); rho "
+              f"{rho_f:.6g}; true ||b - A x|| / ||b|| = {rel:.4g} (f64)", flush=True)
+        check(np.isfinite(rho_f) and np.isfinite(rel) and tuple(x.shape) == (n * n,),
+              f"{tag}: {iters} steps with no host sync inside the loop; finite rho and x of shape "
+              f"({n * n},)")
+        if n == small:
+            xc = cg_dia(step, planes.cpu(), x0.cpu(), b.cpu(), p0.cpu(), rho0.cpu(), iters=20)[0]
+            xg = cg_dia(step, planes, x0, b, p0, rho0, iters=20)[0].cpu()
+            err = float((xg - xc).abs().max())
+            check(err <= 1e-4 * float(xc.abs().max()),
+                  f"{tag}: 20 steps on the card vs on the CPU: max |diff| {err:.3g} (max |x| "
+                  f"{float(xc.abs().max()):.3g}; bound 1e-4 of it)")
+            check(rel < 1e-3, f"{tag}: the true residual after {iters} steps, {rel:.3g}, is below 1e-3")
+        else:
+            check(rel < 1e-4, f"{tag}: the true residual after {iters} steps, {rel:.4g}, is below "
+                              f"1e-4")
+        del planes, x0, b, p0, x, r, p
+    return out
+
+
+def fused_sweep(dev, grid: int, iters: int):
+    """bench.py::run_fused at grid^2: the variants two-pass and one-pass,
+    f32 and bf16 planes (tried only when the planes are exact in bf16),
+    each run once as a warm-up whose final rho must be finite and at most
+    10x the two-pass rho, then timed best of 3 (one call each: pack, setup
+    and ``iters`` iterations, ended by reading rho). The true residual of
+    each variant's x in f64 is reported."""
+    import torch
+    from sparse_tpu_torch.kernels import cg_dia as C
+    from sparse_tpu_torch.models import poisson_cg_state_dia
+
+    print(f"phase 8: run_fused's sweep at {grid}^2, {iters} iterations", flush=True)
+    (planes, _x0, b, _p0, _rho0), _step = poisson_cg_state_dia(grid, device=dev)
+    del _x0, _p0
+    N = grid * grid
+    offsets = (-grid, -1, 0, 1, grid)
+    exact_bf16 = bool(torch.equal(planes, planes.to(torch.bfloat16).to(planes.dtype)))
+    variants = [(C.cg_dia_fused, "twopass", None), (C.cg_dia_fused_onepass, "onepass", None)]
+    if exact_bf16:
+        variants += [(C.cg_dia_fused_onepass, "onepass_bf16", torch.bfloat16),
+                     (C.cg_dia_fused, "twopass_bf16", torch.bfloat16)]
+    check(len(variants) == 4, "the Laplacian's planes are exact in bf16: four variants")
+    out, rho_ref = {}, None
+    for fn, name, pdt in variants:
+        x, _r, rho = fn(planes, offsets, b, None, N, iters=iters, plane_dtype=pdt)
+        rho_f = float(rho)
+        if rho_ref is None and name == "twopass" and np.isfinite(rho_f):
+            rho_ref = rho_f
+        check(rho_ref is not None and np.isfinite(rho_f) and rho_f <= 10 * max(rho_ref, 1e-30),
+              f"{name}: rho {rho_f:.6g} passes run_fused's gate (finite, <= 10 x two-pass {rho_ref})")
+        rel = dia_residual(planes, offsets, x, b)
+        del x, _r
+        best = 0.0
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(planes, offsets, b, None, N, iters=iters, plane_dtype=pdt)
+            float(res[2])
+            best = max(best, iters / (time.perf_counter() - t0))
+            del res
+        out[name] = dict(rho=rho_f, rel_residual=rel, iters_per_s=best)
+        print(f"  {name}: {best:.2f} iters/s (best of 3), rho {rho_f:.6g}, true ||b - A x|| / ||b|| "
+              f"= {rel:.4g} (f64)", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 def timings(dev, A, cg_state, bw, flops):
@@ -907,6 +1209,74 @@ def sell_timings(dev, A, prep, bc, bw, flops):
     return t
 
 
+def slice3_timings(dev, grid: int, cgcg_state, bw, flops):
+    """Times of the column-indexed DIA SpMV at phase 7's shapes (the grid^2
+    Laplacian's scipy planes [5, N], x [N]) against
+    ``torch.sparse_csr_tensor @ x`` of the same matrix, and of one one-pass
+    CG iteration at phase 8's shapes (library: none, no single PyTorch call
+    computes a CG iteration). The one-pass launches, kernel and plain,
+    run phase 2e's recurrence from its b (r, w and s swapped after each),
+    so each timed launch is an iteration of the checked solve. Bytes: the
+    D planes, x and y once for the SpMV; for the one-pass iteration r, w,
+    s read over their padded length (halo windows included), p, x and the
+    D planes read, and r', w', s', p, x written. The bf16-plane variants
+    of the one-pass kernel and of kernel A are timed beside them
+    (printed)."""
+    import torch
+    import sparse_tpu_torch as sparse
+    from sparse_tpu_torch.kernels import cg_dia as C
+    from sparse_tpu_torch.kernels import dia_spmv as D
+    from sparse_tpu_torch.models import laplacian_2d_dia
+
+    sync = torch.cuda.synchronize
+    reps = 20
+    t = {}
+    planes, offs = laplacian_2d_dia(grid, device=dev)
+    N, Dn = grid * grid, len(offs)
+    x = torch.rand((N,), dtype=torch.float32, device=dev)
+    r = t["dia_spmv_direct"] = dict(
+        ms=cuda_ms(lambda: D.dia_spmv_direct(planes, offs, x, (N, N)), reps, sync),
+        plain_ms=cuda_ms(lambda: D.dia_spmv_direct_plain(planes, offs, x, (N, N)), reps, sync),
+        bytes=4 * (Dn * N + N + N), ops=2 * Dn * N,
+    )
+    A = sparse.dia_array((planes, offs), shape=(N, N)).tocsr()
+    csr = torch.sparse_csr_tensor(A.indptr, A.indices, A.data, size=A.shape)
+    y_lib, y_k = csr @ x, D.dia_spmv_direct(planes, offs, x, (N, N))
+    r["library_ms"] = cuda_ms(lambda: csr @ x, reps, sync)
+    print(f"  library (torch.sparse_csr_tensor @ x, nnz {A.nnz}) vs dia_spmv_direct: max |diff| / "
+          f"max |y| = {float((y_lib - y_k).abs().max() / y_k.abs().max()):.3g}", flush=True)
+    del A, csr, y_lib, y_k, planes, x
+
+    plan, packed, b, ws = cgcg_state
+    mp, L = plan.m_pad, plan.m_pad + 2 * plan.B
+    t["cgcg_kernel"] = dict(
+        ms=cuda_ms(onepass_stepper(C.cgcg_kernel, packed, packed, b, plan, ws), reps, sync),
+        plain_ms=cuda_ms(onepass_stepper(C.cgcg_kernel_plain, packed, packed, b, plan), reps,
+                         sync),
+        bytes=4 * (plan.D * mp + 3 * L + 2 * mp + 5 * mp), ops=(6 * plan.D + 12) * mp,
+        library_ms=None,
+    )
+    bf = packed.to(torch.bfloat16)
+    ms_bf = cuda_ms(onepass_stepper(C.cgcg_kernel, bf, packed, b, plan, ws), reps, sync)
+    bound_bf = (2 * plan.D * mp + 4 * (3 * L + 2 * mp + 5 * mp)) / bw * 1e3
+    # kernel A with bf16 planes at the two-pass state of cg_dia_fused from b
+    rp = C._pad_vec(b, plan)
+    pc, pn, q = torch.zeros_like(rp), torch.zeros_like(rp), torch.zeros_like(rp)
+    scc = torch.zeros((4,), dtype=b.dtype, device=b.device)
+    scc[C.RHO] = torch.dot(rp, rp)
+    ms_a = cuda_ms(lambda: C.cg_kernel_a(bf, rp, pc, pn, q, scc, plan, ws), reps, sync)
+    bound_a = (2 * plan.D * mp + 4 * (2 * L + 2 * mp)) / bw * 1e3
+    print(f"  bf16 planes: cgcg_kernel {ms_bf:.4f} ms (bound {bound_bf:.4f} ms), cg_kernel_a "
+          f"{ms_a:.4f} ms (bound {bound_a:.4f} ms)", flush=True)
+    t["cgcg_kernel"]["bf16"] = dict(cgcg_ms=ms_bf, cgcg_bound_ms=bound_bf, cg_kernel_a_ms=ms_a,
+                                    cg_kernel_a_bound_ms=bound_a)
+    for name, r in t.items():
+        byte_ms, op_ms = r["bytes"] / bw * 1e3, r["ops"] / flops * 1e3
+        r["bound_ms"] = max(byte_ms, op_ms)
+        r["bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
+    return t
+
+
 def device_share(label, fn):
     """One call of ``fn`` under torch.profiler: the card's busy share (the
     sum of CUDA kernel times over the host wall time of the call, which
@@ -933,7 +1303,7 @@ def device_share(label, fn):
 
 
 def run(dev: str = "cuda", grid: int = 6000, small_grid: int = 1000, skew_m: int = 2**21,
-        batch_m: int = 2**16, lanes: int = 64) -> dict:
+        batch_m: int = 2**16, lanes: int = 64, entry_grid: int = 64, iters: int = 300) -> dict:
     import torch
     import sparse_tpu_torch as sparse
     from sparse_tpu_torch.kernels import _build
@@ -967,22 +1337,28 @@ def run(dev: str = "cuda", grid: int = 6000, small_grid: int = 1000, skew_m: int
     print(f"  skewed_degree_csr({skew_m}) and ({batch_m}) built on the host in {host_build_s:.2f} s",
           flush=True)
     errs = check_sell_kernels(dev, skew_s, lanes_s, lanes)
-    errs.update({"dia_spmv_packed": err_spmv, "cg_kernel_a": err_a, "cg_kernel_b": err_b})
+    err_direct = check_dia_direct(dev, grid)
+    err_cgcg, cgcg_state = check_cgcg_kernel(dev, grid)
+    errs.update({"dia_spmv_packed": err_spmv, "cg_kernel_a": err_a, "cg_kernel_b": err_b,
+                 "dia_spmv_direct": err_direct, "cgcg_kernel": err_cgcg})
 
     # each path runs with every launch counter at 0 and is read just after
     counters = (D.dia_spmv_packed, C.cg_kernel_a, C.cg_kernel_b, S.sell_spmv_slab,
-                S.sell_spmv_slab_batched)
+                S.sell_spmv_slab_batched, D.dia_spmv_direct, C.cgcg_kernel)
     launches = {}
 
-    def drive(path, kernels, fn, *args):
+    def drive(path, kernels, fn, *args, also=()):
+        """Run ``fn(*args)`` with the counters at 0; each of ``kernels`` must
+        launch and its count is the one reported; each of ``also`` must
+        launch (its count is reported from another path)."""
         for c in counters:
             c.launches = 0
         res = fn(*args)
         seen = {c.__name__: c.launches for c in counters}
         print(f"  launches on the {path}: {seen}", flush=True)
-        for k in kernels:
+        for k in (*kernels, *also):
             check(seen[k] > 0, f"{k} launched on the {path} ({seen[k]} times)")
-            launches[k] = seen[k]
+        launches.update({k: seen[k] for k in kernels})
         return res
 
     A, out = drive("main path", ("dia_spmv_packed", "cg_kernel_a", "cg_kernel_b"),
@@ -991,8 +1367,16 @@ def run(dev: str = "cuda", grid: int = 6000, small_grid: int = 1000, skew_m: int
     out_gen["host_build_s"] = host_build_s
     bc, _X, out_b = drive("batched path", ("sell_spmv_slab_batched",), batched_path, dev, lanes_s,
                           lanes)
-    return dict(card=card, name=name, A=A, out=out, out_gen=out_gen, out_b=out_b, A_gen=A_gen,
-                prep=prep, bc=bc, launches=launches, errs=errs, cg_state=cg_state)
+    out_f = drive("flagship step", ("dia_spmv_direct",), flagship_path, dev, grid, entry_grid, iters)
+    out_s = drive("fused sweep", ("cgcg_kernel",), fused_sweep, dev, grid, iters,
+                  also=("cg_kernel_a", "cg_kernel_b", "dia_spmv_packed"))
+    rel_f, rel_2 = out_f[f"{grid}^2"]["rel_residual"], out_s["twopass"]["rel_residual"]
+    check(rel_f <= 10 * max(rel_2, float(np.finfo(np.float32).eps)),
+          f"flagship step's true residual at {grid}^2 ({rel_f:.4g}) within 10x of the two-pass "
+          f"fused CG's on the same b ({rel_2:.4g})")
+    return dict(card=card, name=name, grid=grid, A=A, out=out, out_gen=out_gen, out_b=out_b, A_gen=A_gen,
+                prep=prep, bc=bc, launches=launches, errs=errs, cg_state=cg_state,
+                cgcg_state=cgcg_state, out_f=out_f, out_s=out_s)
 
 
 _SOURCES = {
@@ -1002,6 +1386,8 @@ _SOURCES = {
     "sell_spmv_slab": ("sparse_tpu_torch/csrc/sell_spmv.cu", "sparse_tpu/kernels/sell_spmv.py:226"),
     "sell_spmv_slab_batched": ("sparse_tpu_torch/csrc/sell_spmv.cu",
                                "sparse_tpu/kernels/sell_spmv.py:293"),
+    "dia_spmv_direct": ("sparse_tpu_torch/csrc/dia_spmv.cu", "sparse_tpu/kernels/dia_spmv.py:639"),
+    "cgcg_kernel": ("sparse_tpu_torch/csrc/cg_dia.cu", "sparse_tpu/kernels/cg_dia.py:374"),
 }
 
 
@@ -1027,8 +1413,11 @@ def main() -> int:
           f"{flops / 1e12:g} TFLOP/s fp32)", flush=True)
     t = timings("cuda", res["A"], res["cg_state"], bw, flops)
     t.update(sell_timings("cuda", res["A_gen"], res["prep"], res["bc"], bw, flops))
+    grid = res["grid"]
+    t.update(slice3_timings("cuda", grid, res.pop("cgcg_state"), bw, flops))
     from sparse_tpu_torch import linalg
     from sparse_tpu_torch.batch import batched_cg
+    from sparse_tpu_torch.models import cg_dia, poisson_cg_state_dia
 
     A_gen, bc = res["A_gen"], res["bc"]
     bg = torch.randn((A_gen.shape[0],), device="cuda")
@@ -1039,6 +1428,10 @@ def main() -> int:
     res["out_b"]["busy_share_batched_cg"] = device_share(
         f"20 batched CG iterations, {bc.batch} lanes",
         lambda: batched_cg(bc, Bb, tol=0.0, maxiter=20, conv_test_iters=200))
+    fstate, fstep = poisson_cg_state_dia(grid, device="cuda")
+    res["out_f"]["busy_share"] = device_share(
+        f"20 flagship steps at {grid}^2", lambda: cg_dia(fstep, *fstate, iters=20))
+    del fstate
     kernels = []
     for name, r in t.items():
         lib = r["library_ms"]
@@ -1055,7 +1448,7 @@ def main() -> int:
         ))
     o = res["out"]
     it_ms = o["cg_s"] / o["cg_iters"] * 1e3
-    print(f"  CG at 6000^2: {o['cg_iters'] / o['cg_s']:.2f} iters/s ({it_ms:.4f} ms per "
+    print(f"  CG at {grid}^2: {o['cg_iters'] / o['cg_s']:.2f} iters/s ({it_ms:.4f} ms per "
           f"iteration; kernels A + B alone {t['cg_kernel_a']['ms'] + t['cg_kernel_b']['ms']:.4f} ms, "
           f"bound {t['cg_kernel_a']['bound_ms'] + t['cg_kernel_b']['bound_ms']:.4f} ms)", flush=True)
     print(f"  tolerance cg at 1000^2: {o['small_cg_iters']} iterations in "
@@ -1066,8 +1459,17 @@ def main() -> int:
           f"iters/s, tolerance cg {g['tol_cg_iters']} iterations in {g['tol_cg_s']:.4f} s", flush=True)
     print(f"  batched: {bo['batched_solves_per_s']:.2f} solves/s ({bo['lanes']} lanes) vs "
           f"{bo['sequential_solves_per_s']:.2f} solves/s one lane after another", flush=True)
+    f, sw = res["out_f"][f"{grid}^2"], res["out_s"]
+    print(f"  flagship step at {grid}^2: {f['iters_per_s']:.2f} iters/s ({f['s'] / f['iters'] * 1e3:.4f} "
+          f"ms per iteration; dia_spmv_direct alone {t['dia_spmv_direct']['ms']:.4f} ms, bound "
+          f"{t['dia_spmv_direct']['bound_ms']:.4f} ms), true residual {f['rel_residual']:.4g}",
+          flush=True)
+    print(f"  run_fused at {grid}^2 (best of 3): " + ", ".join(
+        f"{k} {v['iters_per_s']:.2f} iters/s" for k, v in sw.items()) + f" on {res['card']}", flush=True)
     g["a_at_x_ms"] = t["sell_spmv_slab"].pop("a_at_x_ms")
-    print(json.dumps({"main_path": o, "general_path": g, "batched_path": bo}), flush=True)
+    print(json.dumps({"main_path": o, "general_path": g, "batched_path": bo,
+                      "flagship_step": res["out_f"], "fused_sweep": sw,
+                      "bf16_planes": t["cgcg_kernel"].pop("bf16")}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(res["card"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,7 @@ __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
 
 static inline int stk_copy_offsets(StkOffsets* dst, const long long* src, int D) {
   if (D < 1 || D > STK_MAX_DIAGS) return (int)cudaErrorInvalidValue;

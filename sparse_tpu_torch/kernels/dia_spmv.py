@@ -1,9 +1,12 @@
-"""Prepared DIA SpMV: row-indexed planes packed once, one kernel per ``A @ x``.
+"""DIA SpMV kernels: the prepared path and the direct one.
 
 Port of ``sparse_tpu/kernels/dia_spmv.py``'s prepared path (``DiaPlan``,
 ``dia_plan``, ``dia_pack``, ``dia_pad_x``, ``PreparedDia``,
 ``cached_prepared_spmv``) around a hand-written CUDA kernel
-(``csrc/dia_spmv.cu``) that replaces the Pallas ``dia_spmv_packed``.
+(``csrc/dia_spmv.cu``) that replaces the Pallas ``dia_spmv_packed``, and
+of ``dia_spmv_pallas`` as :func:`dia_spmv_direct`, whose kernel in the
+same source replaces the Pallas ``_dia_spmv_pallas``: one product straight
+from the scipy column-indexed planes, read in place (no pack, no pad).
 
 Packing: plane k's coefficient for row i is ``planes[k * m_pad + i] =
 data[k, i + o_k]`` (zero where the column or the row falls outside the
@@ -22,6 +25,7 @@ import torch
 
 from .. import plan_cache
 from ..config import settings
+from ..ops.dia_spmv import dia_spmv_torch
 from . import _build
 
 #: rows per CUDA block of the DIA kernel (csrc/dia_spmv.cu kThreads)
@@ -95,7 +99,11 @@ def dia_spmv_packed_plain(planes: torch.Tensor, x_padded: torch.Tensor, plan: Di
 
 _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURE = [_PTR, _PTR, _PTR, _I64, _I64, ctypes.POINTER(_I64), _I32, _PTR]
-_SIGNATURES = {"stk_dia_spmv_f32": _SIGNATURE, "stk_dia_spmv_f64": _SIGNATURE}
+_SIG_DIRECT = [_PTR, _PTR, _PTR, _I64, _I64, _I64, ctypes.POINTER(_I64), _I32, _PTR]
+_SIGNATURES = {
+    "stk_dia_spmv_f32": _SIGNATURE, "stk_dia_spmv_f64": _SIGNATURE,
+    "stk_dia_spmv_direct_f32": _SIG_DIRECT, "stk_dia_spmv_direct_f64": _SIG_DIRECT,
+}
 
 
 def dia_spmv_packed(planes: torch.Tensor, x_padded: torch.Tensor, plan: DiaPlan):
@@ -128,6 +136,59 @@ def dia_spmv_packed(planes: torch.Tensor, x_padded: torch.Tensor, plan: DiaPlan)
 
 
 dia_spmv_packed.launches = 0
+
+
+def dia_spmv_direct_plain(data: torch.Tensor, offsets, x: torch.Tensor, shape):
+    """Plain torch version of the direct kernel: ``ops.dia_spmv.dia_spmv_torch``
+    on the planes cut or zero-padded to width n. It sums the kernel's terms
+    data[k, j] * x[j] in the kernel's order, ((0 + t_0) + t_1) + ..., with
+    0 for a term outside the matrix."""
+    n = int(shape[1])
+    if data.shape[1] != n:
+        data = torch.nn.functional.pad(data[:, :n], (0, max(n - data.shape[1], 0)))
+    return dia_spmv_torch(data, tuple(int(o) for o in offsets), x, shape)
+
+
+def dia_spmv_direct(data: torch.Tensor, offsets, x: torch.Tensor, shape):
+    """y = A @ x for A in scipy DIA layout (``data[k, j]`` holds ``A[j - o_k,
+    j]``), ``data`` [D, n'] and x [n], any m and n; returns [m].
+
+    The port of ``dia_spmv_pallas``: the planes are read in place, with no
+    per-call pad and no tile. On a CPU tensor this runs
+    :func:`dia_spmv_direct_plain`; on a CUDA tensor it launches
+    ``csrc/dia_spmv.cu``'s direct kernel (f32 or f64, data and x sharing
+    the dtype) or raises.
+    """
+    m, n = int(shape[0]), int(shape[1])
+    if data.ndim != 2 or data.shape[0] != len(offsets) or x.shape != (n,):
+        raise ValueError(
+            f"dia_spmv_direct: data must be [{len(offsets)}, *] and x [{n}] "
+            f"(got {tuple(data.shape)} and {tuple(x.shape)})"
+        )
+    if data.device.type == "cpu" and x.device.type == "cpu":
+        return dia_spmv_direct_plain(data, offsets, x, (m, n))
+    name = "dia_spmv_direct"
+    _build.require_cuda(name, data, x)
+    if data.dtype != x.dtype or data.dtype not in KERNEL_DTYPES:
+        raise TypeError(
+            f"{name} on {x.device}: dtypes {data.dtype}, {x.dtype} have no CUDA kernel "
+            f"(built for data and x sharing one of {', '.join(map(str, KERNEL_DTYPES))})"
+        )
+    y = torch.empty((m,), dtype=data.dtype, device=data.device)
+    if m == 0:
+        return y
+    lib = _build.library("dia_spmv", _SIGNATURES)
+    fn = lib.stk_dia_spmv_direct_f32 if data.dtype == torch.float32 else lib.stk_dia_spmv_direct_f64
+    code = fn(
+        data.data_ptr(), x.data_ptr(), y.data_ptr(), m, min(n, data.shape[1]), data.shape[1],
+        _build.offsets_array(offsets), len(offsets), _build.stream_handle(data),
+    )
+    _build.check_launch(lib, code, name)
+    dia_spmv_direct.launches += 1
+    return y
+
+
+dia_spmv_direct.launches = 0
 
 
 class PreparedDia:

@@ -6,9 +6,10 @@ For A in scipy DIA layout (``data[k, j]`` holds ``A[j - o_k, j]``):
     y[i] = sum_k data[k, i + o_k] * x[i + o_k]
 
 one [D, n] elementwise product and D shifted adds, no index loads. On the
-card the banded main path runs the prepared kernel instead
-(``kernels/dia_spmv.py``); this version serves dtypes and bands that
-kernel does not take.
+card the banded paths run the hand-written kernels instead
+(``kernels/dia_spmv.py``), which take any band and raise on a dtype they
+are not built for; this version serves CPU tensors past the reference's
+gates and ``dia_array`` products under ``spmv_mode`` ``'ell'``/``'segment'``.
 """
 
 from __future__ import annotations

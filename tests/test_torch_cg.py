@@ -1,11 +1,12 @@
 """sparse_tpu_torch fused CG and linalg.cg against sparse_tpu, on the CPU.
 
-The port's ``cg_dia_fused`` runs its kernels' plain versions here; it is
-held against sparse_tpu's ``cg_dia_fused`` with its Pallas kernels in
-interpret mode, over tests/test_cg_fused.py's cases. Both run the same
-recurrence in f32; their dot products sum in different orders, so the
-iterates agree to f32 rounding amplified over the iterations: 1e-4
-absolute on solutions of norm ~1-10, the reference tests' own tolerance.
+The port's ``cg_dia_fused`` and ``cg_dia_fused_onepass`` run their
+kernels' plain versions here; they are held against sparse_tpu's with its
+Pallas kernels in interpret mode, over tests/test_cg_fused.py's cases.
+Both run the same recurrence in f32; their dot products sum in different
+orders, so the iterates agree to f32 rounding amplified over the
+iterations: 1e-4 absolute on solutions of norm ~1-10, the reference tests'
+own tolerance.
 """
 
 import jax.numpy as jnp
@@ -22,7 +23,7 @@ from sparse_tpu.models.poisson import laplacian_2d_dia
 
 import sparse_tpu_torch as st
 from sparse_tpu_torch import linalg
-from sparse_tpu_torch.kernels.cg_dia import cg_dia_fused
+from sparse_tpu_torch.kernels.cg_dia import cg_dia_fused, cg_dia_fused_onepass
 
 
 @pytest.fixture(autouse=True)
@@ -237,3 +238,139 @@ def test_linear_operator_algebra():
     ident = linalg.IdentityOperator((n * n, n * n), dtype=torch.float64)
     xs, iters = linalg.cg(op, x, M=ident, tol=1e-10)
     torch.testing.assert_close(A @ xs, x, rtol=1e-7, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# one-pass (Chronopoulos-Gear) CG and the bf16 plane stream
+# ---------------------------------------------------------------------------
+def _jax_onepass(data, offsets, b, x0, m, iters, **kw):
+    from sparse_tpu.kernels.cg_dia import cg_dia_fused_onepass as jax_onepass
+
+    out = jax_onepass(jnp.asarray(data), offsets, jnp.asarray(b),
+                      None if x0 is None else jnp.asarray(x0), m, iters=iters, tile=1024,
+                      interpret=True, **kw)
+    return [np.asarray(v) for v in out]
+
+
+def _onepass(data, offsets, b, x0, m, iters, **kw):
+    x, r, rho = cg_dia_fused_onepass(
+        torch.from_numpy(data), offsets, torch.from_numpy(b),
+        None if x0 is None else torch.from_numpy(x0), m, iters=iters, **kw,
+    )
+    return x.numpy(), r.numpy(), float(rho)
+
+
+def _residual(data, offsets, x, b):
+    N = b.shape[0]
+    return np.linalg.norm(sp.dia_matrix((data.astype(np.float64), offsets), shape=(N, N)) @ x - b)
+
+
+def test_onepass_matches_reference_f64():
+    """Same recurrence in f64, dots in other orders: x, r, rho at rtol 1e-10
+    after 10 iterations."""
+    n = 16
+    data, offsets = _lap(n)
+    data = data.astype(np.float64)
+    N = n * n
+    b = np.random.default_rng(7).standard_normal(N)
+    xj, rj, rhoj = _jax_onepass(data, offsets, b, None, N, 10)
+    x, r, rho = _onepass(data, offsets, b, None, N, 10)
+    assert x.dtype == np.float64
+    np.testing.assert_allclose(x, xj, rtol=1e-10, atol=1e-10 * np.abs(xj).max())
+    np.testing.assert_allclose(r, rj, rtol=1e-10, atol=1e-10 * np.abs(rj).max())
+    assert rho == pytest.approx(float(rhoj), rel=1e-10)
+
+
+@pytest.mark.parametrize("n", [16, 40])
+def test_onepass_converges_like_twopass(n):
+    """tests/test_cg_fused.py:103-120's hold, 150 iterations in f32: the
+    one-pass true residual within 4x the two-pass one (or 1e-3), for the
+    port and the reference alike."""
+    data, offsets = _lap(n)
+    N = n * n
+    b = np.random.default_rng(3).standard_normal(N).astype(np.float32)
+    x1 = _onepass(data, offsets, b, None, N, 150)[0]
+    x2 = _port(data, offsets, b, None, N, 150)[0]
+    xj = _jax_onepass(data, offsets, b, None, N, 150)[0]
+    r1, r2, rj = (_residual(data, offsets, v, b) for v in (x1, x2, xj))
+    assert r1 < max(4 * r2, 1e-3)
+    assert rj < max(4 * r2, 1e-3)
+
+
+def test_onepass_nonzero_x0_multi_block():
+    """tests/test_cg_fused.py:123-135: n = 50 (2500 rows: ten port blocks,
+    three reference tiles), a random x0, 150 iterations; both residuals
+    below 1e-2."""
+    n = 50
+    data, offsets = _lap(n)
+    N = n * n
+    rng = np.random.default_rng(4)
+    b = rng.standard_normal(N).astype(np.float32)
+    x0 = rng.standard_normal(N).astype(np.float32)
+    x = _onepass(data, offsets, b, x0, N, 150)[0]
+    xj = _jax_onepass(data, offsets, b, x0, N, 150)[0]
+    assert _residual(data, offsets, x, b) < 1e-2
+    assert _residual(data, offsets, xj, b) < 1e-2
+
+
+def test_onepass_first_iterations_track_reference_f32():
+    data, offsets = _lap(16)
+    N = 256
+    b = np.random.default_rng(8).standard_normal(N).astype(np.float32)
+    xj, rj, _ = _jax_onepass(data, offsets, b, None, N, 20)
+    x, r, _ = _onepass(data, offsets, b, None, N, 20)
+    np.testing.assert_allclose(x, xj, atol=1e-4)
+    np.testing.assert_allclose(r, rj, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_onepass_zero_rhs_guards(dtype):
+    """b = 0: rho = mu = 0 from the start, so alpha and beta must collapse
+    to 0 (not NaN) through every iteration, in both packages."""
+    data, offsets = _lap(12)
+    data = data.astype(dtype)
+    b = np.zeros(144, dtype)
+    x, r, rho = _onepass(data, offsets, b, None, 144, 15)
+    xj, _, rhoj = _jax_onepass(data, offsets, b, None, 144, 15)
+    assert np.all(x == 0) and np.all(r == 0) and rho == 0.0
+    assert np.all(xj == 0) and float(rhoj) == 0.0
+
+
+def test_onepass_converged_state_stays_frozen():
+    """Run far past convergence: once rho reaches 0 the guards keep x finite."""
+    data, offsets = _lap(4)
+    b = np.random.default_rng(1).standard_normal(16)
+    x, _, rho = _onepass(data.astype(np.float64), offsets, b, None, 16, 120)
+    assert np.all(np.isfinite(x)) and np.isfinite(rho)
+    assert _residual(data, offsets, x, b) < 1e-10
+
+
+@pytest.mark.parametrize("fn", ["onepass", "twopass"])
+def test_bf16_planes_give_f32_result(fn):
+    """The Laplacian's values are exact in bf16: the bf16 plane stream
+    (widened at the load) gives the f32 planes' x bit for bit
+    (tests/test_cg_fused.py:138-161)."""
+    n = 24
+    data, offsets = _lap(n)
+    N = n * n
+    assert np.array_equal(data, torch.from_numpy(data).to(torch.bfloat16).float().numpy())
+    b = torch.from_numpy(np.random.default_rng(6).standard_normal(N).astype(np.float32))
+    run = cg_dia_fused_onepass if fn == "onepass" else cg_dia_fused
+    x32 = run(torch.from_numpy(data), offsets, b, None, N, iters=100)[0]
+    xbf = run(torch.from_numpy(data), offsets, b, None, N, iters=100, plane_dtype=torch.bfloat16)[0]
+    assert torch.equal(x32, xbf)
+
+
+def test_bf16_planes_round_inexact_values():
+    """Values not exact in bf16 are rounded in the stream, as the
+    reference's plane_dtype does: the result moves."""
+    m = 64
+    rng = np.random.default_rng(2)
+    data = np.stack([np.full(m, -1.1), np.full(m, 4.3), np.full(m, -1.1)]).astype(np.float32)
+    b = torch.from_numpy(rng.standard_normal(m).astype(np.float32))
+    x32 = cg_dia_fused(torch.from_numpy(data), (-1, 0, 1), b, None, m, iters=5)[0]
+    xbf = cg_dia_fused(torch.from_numpy(data), (-1, 0, 1), b, None, m, iters=5,
+                       plane_dtype=torch.bfloat16)[0]
+    rounded = torch.from_numpy(data).to(torch.bfloat16).float()
+    xr = cg_dia_fused(rounded, (-1, 0, 1), b, None, m, iters=5)[0]
+    assert not torch.equal(x32, xbf) and torch.equal(xbf, xr)

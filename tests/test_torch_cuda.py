@@ -228,3 +228,115 @@ def test_batched_cg_launches_batched_kernel():
         xu, iu = linalg.cg(bc.lane(i), b[i], tol=float(tol[i]), maxiter=2000)
         assert int(info.iters[i]) == iu
         assert torch.equal(X[i], xu)  # the same SpMV sums and dots, lane by lane
+
+
+# ---------------------------------------------------------------------------
+# column-indexed DIA SpMV and the one-pass CG (csrc/dia_spmv.cu, csrc/cg_dia.cu)
+# ---------------------------------------------------------------------------
+DIRECT_CASES = [(50, 50, [-5, -1, 0, 1, 5]), (40, 60, [-3, 0, 2, 10]), (60, 40, [-7, 0, 1]),
+                (7, 7, [0]), (300, 300, [-17, -1, 0, 1, 17]), (100, 2000, [0, 5]),
+                (2500, 2500, [-70, -1, 0, 1, 70])]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n,offs", DIRECT_CASES)
+def test_dia_spmv_direct_kernel_equals_plain(m, n, offs, dtype):
+    """The same products summed in the same order with rounded operations:
+    equal bit for bit."""
+    rng = np.random.default_rng(m * 7 + n)
+    data = torch.tensor(rng.standard_normal((len(offs), n)), dtype=dtype, device="cuda")
+    x = torch.tensor(rng.standard_normal(n), dtype=dtype, device="cuda")
+    before = D.dia_spmv_direct.launches
+    y = D.dia_spmv_direct(data, offs, x, (m, n))
+    assert D.dia_spmv_direct.launches == before + 1
+    assert torch.equal(y, D.dia_spmv_direct_plain(data, offs, x, (m, n)))
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.float16])
+def test_direct_and_onepass_raise_on_dtype_without_kernel(dtype):
+    data = torch.ones((3, 64), dtype=dtype, device="cuda")
+    x = torch.ones(64, dtype=dtype, device="cuda")
+    with pytest.raises(TypeError, match="no CUDA kernel"):
+        D.dia_spmv_direct(data, (-1, 0, 1), x, (64, 64))
+    with pytest.raises(TypeError, match="no CUDA kernel"):
+        C.cg_dia_fused_onepass(data, (-1, 0, 1), x, None, 64, iters=2)
+
+
+def _lap_state(n, dtype, seed):
+    from sparse_tpu_torch.models import laplacian_2d_dia
+
+    planes, offs = laplacian_2d_dia(n, dtype=dtype, device="cuda")
+    plan = D.dia_plan(offs, (n * n, n * n))
+    packed = D.dia_pack(planes, plan)
+    rng = np.random.default_rng(seed)
+    vec = lambda: C._pad_vec(torch.tensor(rng.standard_normal(n * n), dtype=dtype, device="cuda"),
+                             plan)
+    sc = torch.tensor([2.0, 1.5, 0.7, 0.9], dtype=dtype, device="cuda")
+    return planes, offs, plan, packed, vec, sc
+
+
+@pytest.mark.parametrize("dtype,pdt", [(torch.float32, None), (torch.float32, torch.bfloat16),
+                                       (torch.float64, None)])
+def test_cgcg_kernel_equals_plain_after_one_iteration(dtype, pdt):
+    """From the same state: the vectors equal bit for bit; the two dots are
+    sums in another order, within 4 eps of the sum of |terms|."""
+    _, _, plan, packed, vec, sc = _lap_state(64, dtype, seed=3)
+    planes = packed if pdt is None else packed.to(pdt)
+    r, w, s, p, x = vec(), vec(), vec(), vec(), vec()
+    outs = []
+    for fn in (C.cgcg_kernel, C.cgcg_kernel_plain):
+        pk, xk, sck = p.clone(), x.clone(), sc.clone()
+        ro, wo, so = torch.zeros_like(r), torch.zeros_like(r), torch.zeros_like(r)
+        if fn is C.cgcg_kernel:
+            before = C.cgcg_kernel.launches
+            fn(planes, r, w, s, pk, xk, ro, wo, so, sck, plan, C.CgWorkspace(plan, dtype, "cuda"))
+            assert C.cgcg_kernel.launches == before + 1
+        else:
+            fn(planes, r, w, s, pk, xk, ro, wo, so, sck, plan)
+        outs.append((pk, xk, ro, wo, so, sck))
+    for a, b in zip(outs[0][:5], outs[1][:5]):
+        assert torch.equal(a, b)
+    (_, _, ro, wo, *_), sck, scp = outs[1], outs[0][5], outs[1][5]
+    eps = torch.finfo(dtype).eps
+    B, mp = plan.B, plan.m_pad
+    rr_mag = float((ro[B : B + mp].double() ** 2).sum())
+    wr_mag = float((wo[B : B + mp].double() * ro[B : B + mp].double()).abs().sum())
+    assert abs(float(sck[C.RHO]) - float(scp[C.RHO])) <= 4 * eps * rr_mag
+    assert abs(float(sck[C.MU]) - float(scp[C.MU])) <= 4 * eps * wr_mag
+    assert torch.equal(sck[[C.RHO_PREV, C.ALPHA_PREV]], scp[[C.RHO_PREV, C.ALPHA_PREV]])
+
+
+def test_onepass_on_card_repeats_bf16_equals_f32_and_tracks_cpu():
+    n = 64
+    planes, offs, *_ = _lap_state(n, torch.float32, seed=0)
+    b = torch.rand(n * n, device="cuda")
+    before = C.cgcg_kernel.launches
+    x1 = C.cg_dia_fused_onepass(planes, offs, b, None, n * n, iters=60)[0].clone()
+    assert C.cgcg_kernel.launches == before + 60
+    x2 = C.cg_dia_fused_onepass(planes, offs, b, None, n * n, iters=60)[0].clone()
+    assert torch.equal(x1, x2)  # no float atomics
+    xb = C.cg_dia_fused_onepass(planes, offs, b, None, n * n, iters=60,
+                                plane_dtype=torch.bfloat16)[0]
+    assert torch.equal(x1, xb)  # the Laplacian's values are exact in bf16
+    xt = C.cg_dia_fused(planes, offs, b, None, n * n, iters=60)[0].clone()
+    xtb = C.cg_dia_fused(planes, offs, b, None, n * n, iters=60, plane_dtype=torch.bfloat16)[0]
+    assert torch.equal(xt, xtb)
+    xc = C.cg_dia_fused_onepass(planes.cpu(), offs, b.cpu(), None, n * n, iters=60)[0]
+    torch.testing.assert_close(x1.cpu(), xc, rtol=1e-4, atol=1e-4)
+
+
+def test_flagship_step_runs_direct_kernel_without_host_sync():
+    from sparse_tpu_torch.models import cg_dia, poisson_cg_state_dia
+
+    n = 64
+    (planes, x, b, p, rho), step = poisson_cg_state_dia(n, device="cuda")
+    before = D.dia_spmv_direct.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x, r, p, rho = cg_dia(step, planes, x, b, p, rho, iters=50)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert D.dia_spmv_direct.launches == before + 50
+    xc = cg_dia(step, planes.cpu(), torch.zeros(n * n), b.cpu(), torch.zeros(n * n),
+                torch.zeros(()), iters=50)[0]
+    torch.testing.assert_close(x.cpu(), xc, rtol=1e-4, atol=1e-4)

@@ -29,6 +29,7 @@ def test_import_pulls_in_neither_jax_nor_sparse_tpu():
         "import sparse_tpu_torch.interop, sparse_tpu_torch.plan_cache\n"
         "import sparse_tpu_torch.kernels.sell_spmv, sparse_tpu_torch.batch\n"
         "import sparse_tpu_torch.batch.krylov, sparse_tpu_torch.batch.operator\n"
+        "import sparse_tpu_torch.models, sparse_tpu_torch.models.poisson\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sparse_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
