@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch / H100 port (``sparse_tpu_torch``).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--segment-sweep]
 
 Needs one CUDA card, ``nvcc`` and the repository checkout beside this file;
 exits non-zero without them, and on any failed check. Phases, in the order
@@ -11,9 +11,12 @@ they run (1, 2a-2e, 3, 5, 6, 7, 8, 4):
 2. each kernel against its plain torch version on the card: (a, b) the DIA
    SpMV and fused-CG kernels at the main path's shapes (the 6000^2
    Laplacian) and on the edge cases of tests/test_dia_spmv.py, one fused
-   solve run twice bit-identical; (c) both SELL-C-sigma kernels in f32 and
-   f64 on tests/test_torch_sell.py's edge cases and on the full-size packs
-   of phases 5 and 6, and a complex operand must raise; (d) the
+   solve run twice bit-identical; (c) both chunked SELL kernels bit for bit
+   in f32 and f64 values with int32 and int64 indices, on
+   tests/test_torch_sell.py's edge cases (the layout packed from CSR and
+   from the reference's slab packs) and on the full-size packs of phases 5
+   and 6, each batched lane against the single-matrix kernel, and a complex
+   operand must raise; (d) the
    column-indexed DIA SpMV, bit for bit in f32 and f64, on the edge cases,
    a wide matrix and the 6000^2 planes; (e) the one-pass CG kernel at
    6000^2 with f32, bf16 and f64 planes: one iteration (vectors bit for
@@ -41,7 +44,12 @@ they run (1, 2a-2e, 3, 5, 6, 7, 8, 4):
    one-pass, f32 and bf16 planes, each gated on its final rho (finite, at
    most 10x the two-pass rho) and timed best of 3;
 4. times from CUDA events: each kernel, its plain version, its bound, and
-   where one exists the PyTorch library call computing the same function.
+   where one exists the PyTorch library call computing the same function;
+   for the SELL kernels also the x gather's sectors, the layout's bytes
+   beyond the function's, the single kernel on lane-contiguous columns and
+   torch.profiler's list of the kernels one product launches; with
+   ``--segment-sweep`` both SELL kernels at six segment lengths (the
+   experiment that chose ``SELL_SEGMENT``).
 
 Each of the five paths (3, 5, 6, 7, 8) runs with every kernel's launch
 counter set to 0 just before it and read just after; each kernel of the
@@ -330,125 +338,120 @@ def check_cg_kernels(dev, lap):
     return err_a, err_b, (plan, planes, x, r, p, sc, ws)
 
 
-def hold_sell_slabs(label, idx_slabs, val_slabs, x, lanes=None):
-    """Each slab of a SELL pack through its kernel and its plain version on
-    the same inputs. Narrow slabs must equal the plain version bit for bit.
-    A split-K slab sums its K products in segments of KS planes, then W
-    warp partials, then nblk block partials, while the plain version sums
-    all K in order; with u = eps / 2 and S = sum_k |val * x| per row, the
-    recursive-summation bounds give |kernel - plain| <= (K + KS + W + nblk)
-    u S. At f32 the kernel is also held against the sum taken in f64:
-    |kernel - exact| <= (KS + W + nblk) u S. (A flat 4 eps S cannot hold:
-    on a row dominated by one large term, such as the diagonal of the
-    diagonally dominant skewed matrix, the plain K-term sum itself drifts
-    by about sqrt(K) u S.) ``lanes`` selects the batched kernel (``val``
-    [B, K, R], x [B, n]). Returns (max |kernel - plain|, slabs, split-K
-    slabs, max |kernel - exact| / (u S), max |plain - exact| / (u S)),
-    the last two over split-K slabs at f32."""
+def hold_sell_chunks(label, ch, val, x, ws, lanes=None):
+    """One product of a chunked SELL kernel against its plain version on the
+    same inputs: equal bit for bit (the same products summed in the same
+    order, fixed by the layout). ``lanes`` selects the batched kernel
+    (``val`` [slots, B], x [B, n]); each of its lanes is then also held
+    against the single-matrix kernel on that lane's values. Returns max
+    |kernel - plain|."""
     import torch
     from sparse_tpu_torch.kernels import sell_spmv as S
 
-    u = torch.finfo(x.dtype).eps / 2
-    worst, n_split, r_kernel, r_plain = 0.0, 0, 0.0, 0.0
-    for it, vt in zip(idx_slabs, val_slabs):
-        K_, R = it.shape
-        if lanes is None:
-            got, want = S.sell_spmv_slab(it, vt, x), S.sell_spmv_slab_plain(it, vt, x)
-            KS, W, nblk = S.sell_split(K_, R)
-        else:
-            got, want = S.sell_spmv_slab_batched(it, vt, x), S.sell_spmv_slab_batched_plain(it, vt, x)
-            KS, W, nblk = S.sell_split(K_, R)
-        err = (got - want).abs()
-        worst = max(worst, float(err.max()) if err.numel() else 0.0)
-        narrow = (W, nblk) == (1, 1)
-        if narrow:
-            ok = bool(torch.equal(got, want))
-        else:
-            n_split += 1
-            terms = vt.double() * (x[it] if lanes is None else x[:, it]).double()
-            mag = terms.abs().sum(dim=-2)
-            ok = bool(torch.all(err.double() <= (K_ + KS + W + nblk) * u * mag))
-            if x.dtype == torch.float32:
-                exact = terms.sum(dim=-2)
-                dk, dp = (got.double() - exact).abs(), (want.double() - exact).abs()
-                ok = ok and bool(torch.all(dk <= (KS + W + nblk) * u * mag))
-                scale = (u * mag).clamp(min=1e-300)
-                r_kernel = max(r_kernel, float((dk / scale).max()))
-                r_plain = max(r_plain, float((dp / scale).max()))
-            del terms, mag
-        if not ok:
-            raise AssertionError(f"{label}: slab K={K_} R={R} ({'narrow' if narrow else 'split-K'}) "
-                                 f"out of its bound (max |kernel - plain| {float(err.max()):.3g})")
-    return worst, len(idx_slabs), n_split, r_kernel, r_plain
+    if lanes is None:
+        got, want = S.sell_chunk_spmv(ch, val, x, ws), S.sell_chunk_spmv_plain(ch, val, x)
+    else:
+        got, want = (S.sell_chunk_spmv_batched(ch, val, x, ws),
+                     S.sell_chunk_spmv_batched_plain(ch, val, x))
+    err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: kernel differs from its plain version (max err {err:.3g})")
+    if lanes is not None:
+        ws1 = S.SellWorkspace(ch, val.dtype)
+        for b in range(lanes):
+            if not torch.equal(got[b], S.sell_chunk_spmv(ch, val[:, b].contiguous(), x[b], ws1)):
+                raise AssertionError(f"{label}: batched lane {b} differs from the single-matrix kernel")
+    return err
+
+
+def chunk_pack_of(s, dev, dtype, itype, seg=None, with_src=False):
+    """``sell_chunk_pack`` of scipy CSR ``s`` on ``dev`` with values at
+    ``dtype`` and indices at ``itype``."""
+    import torch
+    from sparse_tpu_torch.kernels import sell_spmv as S
+
+    t = lambda a, dt=None: torch.as_tensor(np.asarray(a), device=dev).to(dt)  # noqa: E731
+    return S.sell_chunk_pack(t(s.indptr), t(s.indices, itype),
+                             None if dtype is None else t(s.data, dtype), s.shape, seg=seg,
+                             with_src=with_src)
 
 
 def check_sell_kernels(dev, A_s, lanes_s, lanes: int):
-    """Phase 2c: both SELL kernels against their plain versions, f32 and
-    f64, on tests/test_torch_sell.py's edge cases (two pack geometries, one
-    quantized to powers of two) and on the full-size packs of phases 5 and
-    6; a dtype with no kernel must raise. Returns the max |kernel - plain|
-    of each kernel on its full-size pack in f32."""
+    """Phase 2c: both chunked SELL kernels against their plain versions, bit
+    for bit, f32 and f64 values with int32 and int64 indices, on
+    tests/test_torch_sell.py's edge cases (at the default segment and at 3
+    slots, so that chunks split) with 3 batched lanes, and on the full-size
+    packs of phases 5 and 6; the layout built from the reference's slab
+    packs (``PreparedCSR.from_parts``, two geometries, one quantized to
+    powers of two) gives the product of the layout built from CSR bit for
+    bit; a dtype with no kernel must raise. Returns the max |kernel -
+    plain| of each kernel on its full-size pack in f32."""
     import torch
     from sparse_tpu_torch.batch import BatchedCSR
     from sparse_tpu_torch.kernels import sell_spmv as S
 
-    print("phase 2c: SELL kernels vs plain", flush=True)
+    print("phase 2c: chunked SELL kernels vs plain", flush=True)
     rng = np.random.default_rng(2)
+    combos = [(dt, it) for dt in (torch.float32, torch.float64) for it in (torch.int32, torch.int64)]
     for label, s in sell_edge_cases().items():
-        tally = np.zeros(3)  # slabs, split-K slabs, max |kernel - plain|
-        for C, sigma, max_slabs in ((8, 4096, 16), (4, 16, 3)):
-            for dt in (torch.float32, torch.float64):
-                plan, slabs, pos = S.sell_pack(s.indptr, s.indices, s.data, s.shape, C=C,
-                                               sigma=sigma, max_slabs=max_slabs, device=dev)
-                vals = [vt.to(dt) for _, vt in slabs]
+        held = 0
+        for dt, it in combos:
+            for seg in (3, None):
+                ch = chunk_pack_of(s, dev, dt, it, seg=seg, with_src=True)
                 x = torch.tensor(rng.standard_normal(s.shape[1]), dtype=dt, device=dev)
-                tag = f"{label} C={C} sigma={sigma} max_slabs={max_slabs} {dt}"
+                tag = f"{label} {dt} {it} seg={ch.seg}"
+                y = S.sell_chunk_spmv(ch, ch.val, x, S.SellWorkspace(ch, dt))
+                hold_sell_chunks(tag, ch, ch.val, x, S.SellWorkspace(ch, dt))
+                vals = ch.pack_values(torch.tensor(np.stack([s.data, 2 * s.data, -s.data]), dtype=dt,
+                                                   device=dev))
                 X = torch.tensor(rng.standard_normal((3, s.shape[1])), dtype=dt, device=dev)
-                for held in (hold_sell_slabs(tag, [it for it, _ in slabs], vals, x),
-                             hold_sell_slabs(tag + " batched", [it for it, _ in slabs],
-                                             [torch.stack([v, 2 * v, -v]) for v in vals], X, lanes=3)):
-                    tally = np.array([tally[0] + held[1], tally[1] + held[2], max(tally[2], held[0])])
-                y = S.sell_spmv(plan, tuple(zip([it for it, _ in slabs], vals)), pos, x)
+                hold_sell_chunks(tag + " batched", ch, vals, X, S.SellWorkspace(ch, dt, 3), lanes=3)
+                held += 2
                 ref = s.astype(np.float64) @ x.double().cpu().numpy()
                 tol = 1e-4 if dt == torch.float32 else 1e-12
                 if not np.allclose(y.double().cpu().numpy(), ref, rtol=tol, atol=tol):
-                    raise AssertionError(f"{tag}: sell_spmv differs from scipy")
-        check(True, f"{label}: 2 geometries x f32/f64 x single/batched (x3 lanes), {int(tally[0])} "
-                    f"slabs ({int(tally[1])} split-K) held against their plain versions (max "
-                    f"|kernel - plain| = {tally[2]:.3g}); sell_spmv equals scipy")
+                    raise AssertionError(f"{tag}: sell_chunk_spmv differs from scipy")
+        for C, sigma, max_slabs in ((8, 4096, 16), (4, 16, 3)):
+            plan, slabs, pos = S.sell_pack(s.indptr, s.indices, s.data, s.shape, C=C, sigma=sigma,
+                                           max_slabs=max_slabs, device=dev)
+            prep = S.PreparedCSR.from_parts(plan, slabs, pos)
+            direct = S.PreparedCSR(s.indptr, s.indices, s.data, s.shape, device=dev)
+            x = torch.tensor(rng.standard_normal(s.shape[1]), device=dev)
+            if (dev != "cpu" and prep.chunks is None) or not torch.equal(prep(x), direct(x)):
+                raise AssertionError(f"{label}: from_parts (C={C}, sigma={sigma}) differs from the "
+                                     f"layout packed from CSR")
+        check(True, f"{label}: f32/f64 x int32/int64 x 2 segment lengths, {held} products (single and "
+                    f"3 lanes) equal their plain versions bit for bit, batched lanes equal the single "
+                    f"kernel; sell_chunk_spmv equals scipy; from_parts of 2 slab geometries equals "
+                    f"the CSR-packed operator bit for bit")
 
     errs = {}
     print(f"  full-size pack of phase 5 (m = {A_s.shape[0]}, nnz = {A_s.nnz})", flush=True)
-    plan, slabs, _pos = S.sell_pack(A_s.indptr, A_s.indices, A_s.data, A_s.shape, device=dev)
-    print(f"  {plan}, {plan.stored_slots} stored slots", flush=True)
-    for dt in (torch.float32, torch.float64):
-        # signed x: partial sums random-walk, so the two summation orders
-        # differ by O(eps) of sum |val * x| (positive terms would drift
-        # apart by ~sqrt(K) eps on the K = 131072 slab)
+    for dt, it in combos:
+        ch = chunk_pack_of(A_s, dev, dt, it)
+        # signed x: the sums random-walk as a solver's do
         x = torch.randn((A_s.shape[1],), dtype=dt, device=dev)
-        tag = f"sell_spmv_slab full size {dt}"
-        err, ns, nsplit, rk, rp = hold_sell_slabs(tag, [it for it, _ in slabs],
-                                                  [vt.to(dt) for _, vt in slabs], x)
-        check(True, f"{tag}: {ns} slabs, narrow ones bit-identical to the plain version, "
-                    f"{nsplit} split-K within their bounds (max |kernel - plain| = {err:.3g}; "
-                    f"max |kernel - f64| {rk:.3g} u S, plain {rp:.3g} u S)")
-        if dt == torch.float32:
-            errs["sell_spmv_slab"] = err
-    del slabs
+        err = hold_sell_chunks(f"sell_chunk_spmv full size {dt} {it}", ch, ch.val, x,
+                               S.SellWorkspace(ch, dt))
+        check(True, f"sell_chunk_spmv full size {dt} {it}: {ch} equals its plain version bit for "
+                    f"bit")
+        if dt == torch.float32 and it == torch.int32:
+            errs["sell_chunk_spmv"] = err
+        del ch, x
 
     print(f"  full-size batched pack of phase 6 ({lanes} lanes, m = {lanes_s.shape[0]})", flush=True)
-    bc = BatchedCSR(lanes_s, torch.tensor(lane_values(lanes_s, lanes, seed=5), device=dev))
-    for dt in (torch.float32, torch.float64):
-        pack, vplanes = bc._packed(dt)
+    values = torch.tensor(lane_values(lanes_s, lanes, seed=5), device=dev)
+    for dt, it in combos:
+        ch = chunk_pack_of(lanes_s, dev, None, it, with_src=True)
+        vals = ch.pack_values(values.to(dt))
         X = torch.randn((lanes, lanes_s.shape[1]), dtype=dt, device=dev)
-        tag = f"sell_spmv_slab_batched full size {dt}"
-        err, ns, nsplit, rk, rp = hold_sell_slabs(tag, pack.idx_slabs, vplanes, X, lanes=lanes)
-        check(True, f"{tag}: {ns} slabs, narrow ones bit-identical to the plain version, "
-                    f"{nsplit} split-K within their bounds (max |kernel - plain| = {err:.3g}; "
-                    f"max |kernel - f64| {rk:.3g} u S, plain {rp:.3g} u S)")
-        if dt == torch.float32:
-            errs["sell_spmv_slab_batched"] = err
-    del bc
+        tag = f"sell_chunk_spmv_batched full size {dt} {it}"
+        err = hold_sell_chunks(tag, ch, vals, X, S.SellWorkspace(ch, dt, lanes), lanes=lanes)
+        check(True, f"{tag}: {ch} equals its plain version bit for bit, each of {lanes} lanes the "
+                    f"single-matrix kernel")
+        if dt == torch.float32 and it == torch.int32:
+            errs["sell_chunk_spmv_batched"] = err
+        del ch, vals, X
 
     s = powerlaw_csr(60, 2).astype(np.complex64)
     prep = S.PreparedCSR(s.indptr, s.indices, s.data, s.shape, device=dev)
@@ -801,24 +804,24 @@ def general_path(dev, A_s):
     y = A @ x
     sync()
     out["first_spmv_s"] = time.perf_counter() - t0
-    print(f"  to the card {out['build_s']:.3f} s; first A @ x (banded test, ELL gate, host SELL "
-          f"pack, launches) {out['first_spmv_s']:.3f} s", flush=True)
+    print(f"  to the card {out['build_s']:.3f} s; first A @ x (banded test, ELL gate, chunk "
+          f"pack on the card, launch) {out['first_spmv_s']:.3f} s", flush=True)
     prep = plan_cache.lookup(A, "sell")
-    check(prep is not None and A._maybe_dia() is None,
+    check(prep is not None and A._maybe_dia() is None and (dev == "cpu" or prep.chunks is not None),
           "'auto' routed the skewed matrix past DIA to the prepared SELL operator")
-    out.update(slabs=len(prep.plan.slab_meta), stored_slots=prep.plan.stored_slots,
-               pad_ratio=prep.plan.pad_ratio)
-    print(f"  {prep.plan}: {prep.plan.stored_slots} stored slots; slab (K, R): "
-          f"{[(k, r) for k, r, _ in prep.plan.slab_meta]}", flush=True)
-    # the same pack without the reference's 16-slab cap (every chunk width a
-    # slab of its own), on the host: the padding the cap's rounding costs
-    from sparse_tpu_torch.kernels.sell_spmv import sell_pack
+    ch = prep.chunks
+    if ch is not None:
+        out.update(chunks=ch.nchunks, stored_slots=ch.slots, pad_ratio=ch.pad_ratio,
+                   work_items=ch.nwork, partial_rows=ch.npart, segment=ch.seg)
+        print(f"  {ch}; widest chunk {int((ch.cptr[1] - ch.cptr[0]) // 32)} slots a row",
+              flush=True)
+        from sparse_tpu_torch.kernels import sell_spmv as S
 
-    free = sell_pack(A_s.indptr, A_s.indices, A_s.data, A_s.shape, max_slabs=2**62, device="cpu")[0]
-    out.update(uncapped_slabs=len(free.slab_meta), uncapped_pad_ratio=free.pad_ratio)
-    print(f"  without the 16-slab cap: {len(free.slab_meta)} slabs, pad ratio {free.pad_ratio:.3f}",
-          flush=True)
-    del free
+        before = S.sell_chunk_spmv.launches
+        y2 = A @ x
+        check(S.sell_chunk_spmv.launches == before + 1 and bool(torch.equal(y2, y)),
+              "a second A @ x is one launch and gives y bit for bit")
+        del y2
     check(tuple(y.shape) == (m,) and bool(torch.isfinite(y).all()), "A @ x: finite, shape (m,)")
     rows = np.unique(np.concatenate([rng.choice(m, min(4096, m), replace=False),
                                      [0, m - 1, int(deg.argmax())]]))
@@ -942,6 +945,13 @@ def batched_path(dev, A_s, lanes: int):
                            maxiter=maxiter)
     check(int(info1.iters[0]) == i0u and bool(torch.equal(X1[0], x0u)),
           f"B = 1: batched_cg equals linalg.cg bit for bit ({i0u} iterations)")
+    if dev != "cpu":
+        from sparse_tpu_torch.kernels import sell_spmv as S
+
+        before = S.sell_chunk_spmv_batched.launches
+        bc.matvec(b)
+        check(S.sell_chunk_spmv_batched.launches == before + 1,
+              f"one batched product over {lanes} lanes is one launch")
     out["batched_solves_per_s"] = lanes / t[1]
     out["sequential_solves_per_s"] = lanes / seq_s
     print(f"  {out['batched_solves_per_s']:.2f} solves/s batched vs "
@@ -1125,88 +1135,175 @@ def timings(dev, A, cg_state, bw, flops):
 
 
 def sell_timings(dev, A, prep, bc, bw, flops):
-    """Times of the two SELL kernels at the full-size packs of phases 5 and
-    6: every slab's launch for one product (the packed y, before the pos
-    gather), the plain slab loop, and the PyTorch library call computing
-    A @ x (torch.sparse_csr_tensor; for the batch a 3-D CSR tensor through
-    torch.bmm). Bytes: every stored slot's index and value read once, x
-    read once and the packed y written once; the shared index planes once
-    for the batch, its values, x and y per lane."""
+    """Times of the two chunked SELL kernels at the full-size layouts of
+    phases 5 and 6, one launch a product: the kernel (the batched wrapper's
+    time includes its one transpose of X, timed apart too), its plain
+    version, and one PyTorch call computing the same function:
+    ``torch.sparse_csr_tensor @ x``, and for the batch the block-diagonal
+    2-D CSR of its lanes (B m x B n, B nnz) @ ``X.reshape(-1)`` (a 3-D CSR
+    through ``torch.bmm`` raises on the card), held against the kernel path
+    within 2 gamma_k sum|a x| a row (k its nonzeros, two f32 sums of the
+    same products). Bytes are the function's, counted from the nonzeros:
+    each nonzero's index and value read once, x read once, y written once,
+    perm read once (for the batch the shared indices and perm once, values,
+    x and y per lane). The layout's pad slots, work list and cptr are its
+    overhead, kept beside the bound. Also: the x gather's 32-byte sectors a
+    product (single: the distinct sectors of each warp's slot step, counted
+    from the layout; batched: 32 lanes of x are 128 contiguous bytes) and
+    the single kernel on the same layout with lane-contiguous columns (the
+    same HBM bytes, a coalesced gather)."""
     import torch
     from sparse_tpu_torch.kernels import sell_spmv as S
 
     sync = torch.cuda.synchronize
     reps = 20
     t = {}
-    plan, slabs = prep.plan, prep.slabs
-    n, rows = plan.n, sum(R for _, R, _ in plan.slab_meta)
-    x = torch.randn((n,), dtype=torch.float32, device=dev)
-    ybuf = torch.empty((rows,), dtype=torch.float32, device=dev)
-
-    def slab_calls(slabs, meta, xv, yv, launch):
-        """One zero-argument launch per slab, each into its rows of yv."""
-        calls, off = [], 0
-        for (it, vt), (_K, R, _) in zip(slabs, meta):
-            calls.append((lambda it=it, vt=vt, o=off, R=R: launch(it, vt, xv, out=yv[..., o : o + R])))
-            off += R
-        return calls
-
-    calls = slab_calls(slabs, plan.slab_meta, x, ybuf, S.sell_spmv_slab)
-    ib = slabs[0][0].element_size()
-    r = t["sell_spmv_slab"] = dict(
-        ms=cuda_ms(lambda: [c() for c in calls], reps, sync),
-        plain_ms=cuda_ms(lambda: [S.sell_spmv_slab_plain(it, vt, x) for it, vt in slabs], 1, sync),
-        bytes=plan.stored_slots * (ib + 4) + 4 * (n + rows), ops=2 * plan.stored_slots,
+    f32 = torch.float32
+    ch = prep.chunks
+    val, ws = prep._chunk_vals(f32), prep._ws[f32]
+    m, n, nnz = ch.m, ch.n, ch.nnz
+    ib = ch.idx.element_size()
+    x = torch.randn((n,), dtype=f32, device=dev)
+    r = t["sell_chunk_spmv"] = dict(
+        ms=cuda_ms(lambda: S.sell_chunk_spmv(ch, val, x, ws), reps, sync),
+        plain_ms=cuda_ms(lambda: S.sell_chunk_spmv_plain(ch, val, x), 1, sync),
+        bytes=nnz * (ib + 4) + ib * m + 4 * (n + m), ops=2 * nnz,
+        layout_overhead_bytes=(ch.slots - nnz) * (ib + 4) + 16 * ch.nwork + 8 * (ch.nchunks + 1),
     )
     csr = torch.sparse_csr_tensor(A.indptr, A.indices, A.data, size=A.shape)
     y_lib, y_k = csr @ x, A @ x
     r["library_ms"] = cuda_ms(lambda: csr @ x, reps, sync)
     r["a_at_x_ms"] = cuda_ms(lambda: A @ x, reps, sync)
-    print(f"  general A @ x end to end (slabs + pos gather): {r['a_at_x_ms']:.4f} ms; library "
-          f"(torch.sparse_csr_tensor @ x) vs kernel path: max |diff| / max |y| = "
+    print(f"  general A @ x end to end: {r['a_at_x_ms']:.4f} ms; library (torch.sparse_csr_tensor @ "
+          f"x) vs kernel path: max |diff| / max |y| = "
           f"{float((y_lib - y_k).abs().max() / y_k.abs().max()):.3g}", flush=True)
     del csr, y_lib, y_k
-    for (K_, R, _), c in zip(plan.slab_meta, calls):
-        ms = cuda_ms(c, reps, sync)
-        bound = (K_ * R * (ib + 4) + 4 * R) / bw * 1e3
-        print(f"    slab K={K_} R={R} split {S.sell_split(K_, R)}: {ms:.4f} ms "
-              f"(bound {bound:.4f} ms without x)", flush=True)
+    key = (torch.arange(ch.slots, device=dev) // 32) * (n // 8 + 1) + ch.idx.to(torch.int64) // 8
+    sectors = int(torch.unique(key).numel())
+    del key
+    lane_cols = (torch.arange(ch.slots, device=dev) % n).to(ch.idx.dtype)
+    ch_c = S.SellChunks(ch.m, ch.n, ch.nnz, ch.seg, ch.slots, ch.perm, ch.cptr, lane_cols, val,
+                        None, ch.work, ch.npart)
+    ms_c = cuda_ms(lambda: S.sell_chunk_spmv(ch_c, val, x, ws), reps, sync)
+    del ch_c, lane_cols
+    r["gather"] = dict(sectors=sectors, sector_bytes=32 * sectors, hbm_bytes=r["bytes"],
+                       layout_overhead_bytes=r["layout_overhead_bytes"],
+                       ms_lane_contiguous_columns=ms_c)
+    print(f"  sell_chunk_spmv: {nnz} nonzeros in {ch.slots} slots; the function moves "
+          f"{r['bytes'] / 1e9:.4f} GB, the layout adds {r['layout_overhead_bytes'] / 1e9:.4f} GB "
+          f"(pad slots, work list, cptr); x gather {sectors} sectors ({32 * sectors / 1e9:.3f} GB "
+          f"through L2); the same layout with lane-contiguous columns {ms_c:.4f} ms against "
+          f"{r['ms']:.4f} ms", flush=True)
 
-    pack, vals = bc._packed(torch.float32)
+    ch_b, vals, ws_b = bc._chunk_packed(f32)
     B, m_b, n_b = bc.shape
-    rows_b = sum(R for _, R, _ in pack.plan.slab_meta)
-    slots_b = pack.plan.stored_slots
-    X = torch.randn((B, n_b), dtype=torch.float32, device=dev)
-    Ybuf = torch.empty((B, rows_b), dtype=torch.float32, device=dev)
-    slabs_b = tuple(zip(pack.idx_slabs, vals))
-    calls_b = slab_calls(slabs_b, pack.plan.slab_meta, X, Ybuf, S.sell_spmv_slab_batched)
-    ib = pack.idx_slabs[0].element_size()
-    r = t["sell_spmv_slab_batched"] = dict(
-        ms=cuda_ms(lambda: [c() for c in calls_b], reps, sync),
-        plain_ms=cuda_ms(lambda: [S.sell_spmv_slab_batched_plain(it, vt, X) for it, vt in slabs_b],
-                         2, sync),
-        bytes=slots_b * ib + B * (4 * slots_b + 4 * (n_b + rows_b)), ops=2 * B * slots_b,
-        library_ms=None,
+    nnz_b, ib = ch_b.nnz, ch_b.idx.element_size()
+    X = torch.randn((B, n_b), dtype=f32, device=dev)
+    r = t["sell_chunk_spmv_batched"] = dict(
+        ms=cuda_ms(lambda: S.sell_chunk_spmv_batched(ch_b, vals, X, ws_b), reps, sync),
+        plain_ms=cuda_ms(lambda: S.sell_chunk_spmv_batched_plain(ch_b, vals, X), 1, sync),
+        bytes=nnz_b * ib + ib * m_b + B * (4 * nnz_b + 4 * (n_b + m_b)), ops=2 * B * nnz_b,
+        layout_overhead_bytes=((ch_b.slots - nnz_b) * (ib + 4 * B) + 16 * ch_b.nwork
+                               + 8 * (ch_b.nchunks + 1)),
     )
-    try:
-        crow = torch.as_tensor(bc.pattern.indptr.astype(np.int64), device=dev)
-        col = torch.as_tensor(bc.pattern.indices.astype(np.int64), device=dev)
-        Ab = torch.sparse_csr_tensor(crow.expand(B, -1).contiguous(), col.expand(B, -1).contiguous(),
-                                     bc.values, size=(B, m_b, n_b))
-        X3 = X[:, :, None]
-        Yl, Yk = torch.bmm(Ab, X3)[:, :, 0], bc.matvec(X)
-        r["library_ms"] = cuda_ms(lambda: torch.bmm(Ab, X3), reps, sync)
-        print(f"  batched library (3-D torch.sparse_csr_tensor, torch.bmm) vs kernel path: max "
-              f"|diff| / max |y| = {float((Yl - Yk).abs().max() / Yk.abs().max()):.3g}", flush=True)
-        del Ab, Yl, Yk
-    except (RuntimeError, NotImplementedError, TypeError) as e:
-        print(f"  batched library call (3-D torch.sparse_csr_tensor, torch.bmm) does not run: "
-              f"{type(e).__name__}: {e}", flush=True)
+    tr_ms = cuda_ms(lambda: X.t().contiguous(), reps, sync)
+    sectors_b = ch_b.slots * -(-4 * B // 32)
+    r["gather"] = dict(sectors=sectors_b, sector_bytes=32 * sectors_b, hbm_bytes=r["bytes"],
+                       layout_overhead_bytes=r["layout_overhead_bytes"], transpose_ms=tr_ms)
+    print(f"  sell_chunk_spmv_batched: {r['ms']:.4f} ms a product, of which the transpose of X "
+          f"{tr_ms:.4f} ms; the function moves {r['bytes'] / 1e9:.4f} GB, the layout adds "
+          f"{r['layout_overhead_bytes'] / 1e9:.4f} GB; x gather {sectors_b} sectors "
+          f"({32 * sectors_b / 1e9:.3f} GB, contiguous per 32 lanes)", flush=True)
+    pat = bc.pattern
+    it = torch.int32 if B * max(nnz_b, m_b, n_b) < 2**31 else torch.int64
+    ip = torch.as_tensor(np.asarray(pat.indptr), device=dev).to(it)
+    lane = torch.arange(B, dtype=it, device=dev)[:, None]
+    crow = torch.cat([(ip[None, :-1] + lane * nnz_b).reshape(-1),
+                      torch.full((1,), B * nnz_b, dtype=it, device=dev)])
+    col = (torch.as_tensor(np.asarray(pat.indices), device=dev).to(it)[None, :]
+           + lane * n_b).reshape(-1)
+    lv = bc.values.to(f32).reshape(-1)
+    Ad = torch.sparse_csr_tensor(crow, col, lv, size=(B * m_b, B * n_b))
+    xf = X.reshape(-1)
+    Yl, Yk = Ad @ xf, bc.matvec(X).reshape(-1)
+    r["library_ms"] = cuda_ms(lambda: Ad @ xf, reps, sync)
+    del Ad
+    Aabs = torch.sparse_csr_tensor(crow, col, lv.abs().double(), size=(B * m_b, B * n_b))
+    mag = Aabs @ xf.abs().double()
+    k = torch.diff(ip).double().repeat(B)
+    u = float(np.finfo(np.float32).eps) / 2
+    bound = 2 * k * u / (1 - k * u) * mag
+    diff = (Yl.double() - Yk.double()).abs()
+    check(bool((diff <= bound).all()),
+          f"batched library call (block-diagonal torch.sparse_csr_tensor of {B} lanes @ "
+          f"X.reshape(-1)) equals the kernel path within 2 gamma_k sum|a x| on all {B * m_b} "
+          f"rows (max |diff| / bound {float((diff / bound.clamp(min=1e-300)).max()):.3g}); "
+          f"{r['library_ms']:.4f} ms")
+    del Aabs, mag, k, bound, diff, Yl, Yk, crow, col, lv
     for name, r in t.items():
         byte_ms, op_ms = r["bytes"] / bw * 1e3, r["ops"] / flops * 1e3
         r["bound_ms"] = max(byte_ms, op_ms)
         r["bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
     return t
+
+
+def segment_sweep(dev, A, bc, segs=(32, 64, 128, 256, 512, 1024)):
+    """Both chunked SELL kernels at each segment length in ``segs`` (slots
+    a row a work item) on the full-size layouts of phases 5 and 6, f32, ms
+    a product by CUDA events: the experiment that chose ``SELL_SEGMENT``.
+    The two kernels must share one work list, so one length serves both.
+    Runs with ``python3 chip_smoke.py --segment-sweep``."""
+    import torch
+    from sparse_tpu_torch.kernels import sell_spmv as S
+
+    sync = torch.cuda.synchronize
+    f32 = torch.float32
+    x = torch.randn((A.shape[1],), dtype=f32, device=dev)
+    B = bc.batch
+    X = torch.randn((B, bc.shape[2]), dtype=f32, device=dev)
+    pat = bc.pattern
+    out = {"single": {}, "batched": {}}
+    for seg in segs:
+        c = S.sell_chunk_pack(A.indptr, A.indices, A.data.to(f32), A.shape, seg=seg)
+        w = S.SellWorkspace(c, f32)
+        out["single"][seg] = cuda_ms(lambda: S.sell_chunk_spmv(c, c.val, x, w), 20, sync)
+        del c, w
+        c = S.sell_chunk_pack(torch.as_tensor(np.asarray(pat.indptr), device=dev),
+                              torch.as_tensor(np.asarray(pat.indices), device=dev), None,
+                              pat.shape, seg=seg, with_src=True)
+        v, w = c.pack_values(bc.values.to(f32)), S.SellWorkspace(c, f32, B)
+        out["batched"][seg] = cuda_ms(lambda: S.sell_chunk_spmv_batched(c, v, X, w), 20, sync)
+        del c, v, w
+    for kind, ms in out.items():
+        print(f"  segment sweep, {kind} kernel (ms a product): "
+              + ", ".join(f"{k}: {v:.4f}" for k, v in ms.items()), flush=True)
+    return out
+
+
+def product_kernels(label, fn, kernel: str, most: int, reps: int = 3):
+    """The CUDA kernels ``reps`` calls of ``fn`` launch, by torch.profiler:
+    the kernel named ``kernel`` once a call and at most ``most`` kernels a
+    call in all (no ticket fill, no gather pass). A profile that records no
+    device event is taken again, twice at most; if none does, this fails."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = [(e.key, e.count) for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if seen:
+            break
+    check(bool(seen), f"torch.profiler records the card's kernels for {reps} x {label}")
+    ours = sum(c for k, c in seen if kernel in k)
+    check(ours == reps and sum(c for _, c in seen) <= most * reps,
+          f"{reps} x {label} launch {seen} on the card: {kernel} once a call, {most} kernel(s) a "
+          f"call at most")
 
 
 def slice3_timings(dev, grid: int, cgcg_state, bw, flops):
@@ -1343,8 +1440,8 @@ def run(dev: str = "cuda", grid: int = 6000, small_grid: int = 1000, skew_m: int
                  "dia_spmv_direct": err_direct, "cgcg_kernel": err_cgcg})
 
     # each path runs with every launch counter at 0 and is read just after
-    counters = (D.dia_spmv_packed, C.cg_kernel_a, C.cg_kernel_b, S.sell_spmv_slab,
-                S.sell_spmv_slab_batched, D.dia_spmv_direct, C.cgcg_kernel)
+    counters = (D.dia_spmv_packed, C.cg_kernel_a, C.cg_kernel_b, S.sell_chunk_spmv,
+                S.sell_chunk_spmv_batched, D.dia_spmv_direct, C.cgcg_kernel)
     launches = {}
 
     def drive(path, kernels, fn, *args, also=()):
@@ -1363,9 +1460,9 @@ def run(dev: str = "cuda", grid: int = 6000, small_grid: int = 1000, skew_m: int
 
     A, out = drive("main path", ("dia_spmv_packed", "cg_kernel_a", "cg_kernel_b"),
                    main_path, dev, grid, small_grid)
-    A_gen, prep, out_gen = drive("general path", ("sell_spmv_slab",), general_path, dev, skew_s)
+    A_gen, prep, out_gen = drive("general path", ("sell_chunk_spmv",), general_path, dev, skew_s)
     out_gen["host_build_s"] = host_build_s
-    bc, _X, out_b = drive("batched path", ("sell_spmv_slab_batched",), batched_path, dev, lanes_s,
+    bc, _X, out_b = drive("batched path", ("sell_chunk_spmv_batched",), batched_path, dev, lanes_s,
                           lanes)
     out_f = drive("flagship step", ("dia_spmv_direct",), flagship_path, dev, grid, entry_grid, iters)
     out_s = drive("fused sweep", ("cgcg_kernel",), fused_sweep, dev, grid, iters,
@@ -1383,9 +1480,9 @@ _SOURCES = {
     "dia_spmv_packed": ("sparse_tpu_torch/csrc/dia_spmv.cu", "sparse_tpu/kernels/dia_spmv.py:207"),
     "cg_kernel_a": ("sparse_tpu_torch/csrc/cg_dia.cu", "sparse_tpu/kernels/cg_dia.py:501"),
     "cg_kernel_b": ("sparse_tpu_torch/csrc/cg_dia.cu", "sparse_tpu/kernels/cg_dia.py:536"),
-    "sell_spmv_slab": ("sparse_tpu_torch/csrc/sell_spmv.cu", "sparse_tpu/kernels/sell_spmv.py:226"),
-    "sell_spmv_slab_batched": ("sparse_tpu_torch/csrc/sell_spmv.cu",
-                               "sparse_tpu/kernels/sell_spmv.py:293"),
+    "sell_chunk_spmv": ("sparse_tpu_torch/csrc/sell_spmv.cu", "sparse_tpu/kernels/sell_spmv.py:226"),
+    "sell_chunk_spmv_batched": ("sparse_tpu_torch/csrc/sell_spmv.cu",
+                                "sparse_tpu/kernels/sell_spmv.py:293"),
     "dia_spmv_direct": ("sparse_tpu_torch/csrc/dia_spmv.cu", "sparse_tpu/kernels/dia_spmv.py:639"),
     "cgcg_kernel": ("sparse_tpu_torch/csrc/cg_dia.cu", "sparse_tpu/kernels/cg_dia.py:374"),
 }
@@ -1413,6 +1510,8 @@ def main() -> int:
           f"{flops / 1e12:g} TFLOP/s fp32)", flush=True)
     t = timings("cuda", res["A"], res["cg_state"], bw, flops)
     t.update(sell_timings("cuda", res["A_gen"], res["prep"], res["bc"], bw, flops))
+    sweep = (segment_sweep("cuda", res["A_gen"], res["bc"]) if "--segment-sweep" in sys.argv[1:]
+             else None)
     grid = res["grid"]
     t.update(slice3_timings("cuda", grid, res.pop("cgcg_state"), bw, flops))
     from sparse_tpu_torch import linalg
@@ -1428,6 +1527,10 @@ def main() -> int:
     res["out_b"]["busy_share_batched_cg"] = device_share(
         f"20 batched CG iterations, {bc.batch} lanes",
         lambda: batched_cg(bc, Bb, tol=0.0, maxiter=20, conv_test_iters=200))
+    xg = torch.randn((A_gen.shape[1],), device="cuda")
+    product_kernels("A @ x on the general path", lambda: A_gen @ xg, "sell_chunk_kernel", 1)
+    product_kernels(f"batched product over {bc.batch} lanes", lambda: bc.matvec(Bb),
+                    "sell_chunk_batched_kernel", 2)
     fstate, fstep = poisson_cg_state_dia(grid, device="cuda")
     res["out_f"]["busy_share"] = device_share(
         f"20 flagship steps at {grid}^2", lambda: cg_dia(fstep, *fstate, iters=20))
@@ -1454,8 +1557,8 @@ def main() -> int:
     print(f"  tolerance cg at 1000^2: {o['small_cg_iters']} iterations in "
           f"{o['small_cg_s']:.4f} s, true relative residual {o['small_rel_residual']:.3g}", flush=True)
     g, bo = res["out_gen"], res["out_b"]
-    print(f"  general path at m = {g['m']}: first A @ x {g['first_spmv_s']:.3f} s (host pack "
-          f"included), A @ x {t['sell_spmv_slab']['a_at_x_ms']:.4f} ms, CG {g['cg_iters_per_s']:.2f} "
+    print(f"  general path at m = {g['m']}: first A @ x {g['first_spmv_s']:.3f} s (chunk pack "
+          f"included), A @ x {t['sell_chunk_spmv']['a_at_x_ms']:.4f} ms, CG {g['cg_iters_per_s']:.2f} "
           f"iters/s, tolerance cg {g['tol_cg_iters']} iterations in {g['tol_cg_s']:.4f} s", flush=True)
     print(f"  batched: {bo['batched_solves_per_s']:.2f} solves/s ({bo['lanes']} lanes) vs "
           f"{bo['sequential_solves_per_s']:.2f} solves/s one lane after another", flush=True)
@@ -1466,7 +1569,11 @@ def main() -> int:
           flush=True)
     print(f"  run_fused at {grid}^2 (best of 3): " + ", ".join(
         f"{k} {v['iters_per_s']:.2f} iters/s" for k, v in sw.items()) + f" on {res['card']}", flush=True)
-    g["a_at_x_ms"] = t["sell_spmv_slab"].pop("a_at_x_ms")
+    g["a_at_x_ms"] = t["sell_chunk_spmv"].pop("a_at_x_ms")
+    g["gather"] = t["sell_chunk_spmv"].pop("gather")
+    bo["gather"] = t["sell_chunk_spmv_batched"].pop("gather")
+    if sweep is not None:
+        g["segment_sweep"], bo["segment_sweep"] = sweep["single"], sweep["batched"]
     print(json.dumps({"main_path": o, "general_path": g, "batched_path": bo,
                       "flagship_step": res["out_f"], "fused_sweep": sw,
                       "bf16_planes": t["cgcg_kernel"].pop("bf16")}), flush=True)

@@ -9,8 +9,9 @@ others work. Convergence is tested at the points of the unbatched solvers
 (every ``conv_test_iters`` steps and at ``maxiter - 1``, absolute
 ``||r|| < tol``), so a batch of one reproduces ``linalg.cg``. On a SELL
 operator each lane's SpMV and dot products equal those of the lone solve
-bit for bit (``kernels/sell_spmv.sell_split``, ``linalg._vdot``), so a
-lane's iterates and iteration count are the lone ``linalg.cg``'s.
+bit for bit (the chunk layout's work list depends on the pattern alone,
+``kernels/sell_spmv.sell_chunk_pack``; ``linalg._vdot``), so a lane's
+iterates and iteration count are the lone ``linalg.cg``'s.
 
 Host syncs: the reference's ``while any(active)`` runs on the device. Here
 the host reads the mask only at the test points: between them ``active``

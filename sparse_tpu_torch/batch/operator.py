@@ -2,14 +2,15 @@
 
 Port of ``sparse_tpu/batch/operator.py``. Many systems that share a sparsity
 pattern (one mesh or graph, different coefficients) are solved together:
-the host pack (SELL slab geometry, DIA offset maps) is keyed on the
-*pattern* in ``plan_cache``, and a ``(B, nnz)`` value stack repacks on the
-device as one gather per slab through the pattern's source maps.
+the pattern packs (the SELL slab geometry on the CPU, the chunk layout on
+a CUDA device, DIA offset maps) are keyed on the *pattern* in
+``plan_cache``, and a ``(B, nnz)`` value stack repacks on the device as one
+gather through the pattern's source maps.
 
 * :class:`SparsityPattern`: host-held CSR structure, the plan-cache key;
 * :class:`BatchedCSR`: stacked values over one pattern; ``matvec`` launches
-  the batched SELL kernel (``kernels/sell_spmv.sell_spmv_batched``) on a
-  CUDA operand in every ``spmv_mode`` but 'segment';
+  the batched chunk kernel (``kernels/sell_spmv.sell_chunk_spmv_batched``)
+  once a product on a CUDA operand in every ``spmv_mode`` but 'segment';
 * :class:`BatchedDIA`: stacked diagonal planes for banded patterns;
 * :func:`make_batched_operator`: stacks of CSR matrices, dense ``[B, m, n]``
   stacks, ``(pattern, values)`` pairs.
@@ -79,11 +80,22 @@ class SparsityPattern:
         return self is other or self.fingerprint == other.fingerprint
 
     def sell_pack(self, device):
-        """The pattern's one-time SELL pack on ``device``, plan-cached:
+        """The pattern's one-time SELL slab pack on ``device``, plan-cached:
         a :class:`_SellPatternPack` (plan, index planes, ``pos``, and the
         per-slab packed slot -> nnz position maps)."""
         dev = torch.device(device)
         return plan_cache.get(self, f"sell.pattern:{dev}", lambda: self._build_sell(dev))
+
+    def sell_chunks(self, device):
+        """The pattern's chunk layout on ``device`` (``sell_chunk_pack``,
+        built there, with its slot -> nnz map), plan-cached: the card's
+        batched layout, the same as every lane's lone ``PreparedCSR``."""
+        from ..kernels.sell_spmv import sell_chunk_pack
+
+        dev = torch.device(device)
+        return plan_cache.get(self, f"sell.chunks:{dev}", lambda: sell_chunk_pack(
+            as_tensor(self.indptr, dev), as_tensor(self.indices, dev), None, self.shape,
+            with_src=True))
 
     def _build_sell(self, device):
         from ..kernels.sell_spmv import sell_pack
@@ -198,14 +210,15 @@ class BatchedOperator:
 class BatchedCSR(BatchedOperator):
     """Stacked CSR values ``(B, nnz)`` over one shared pattern.
 
-    One SELL pattern pack (plan-cached on the pattern) serves the whole
-    batch: the values repack once on the device through the pattern's
-    source maps. On a CUDA operand ``matvec`` launches the batched SELL
-    kernel in every ``spmv_mode`` but 'segment' (f32/f64; other dtypes
-    raise). On the CPU it keeps the reference's choice: the kernel path
+    One pattern pack (plan-cached on the pattern) serves the whole batch:
+    the values repack once on the device through the pattern's source
+    maps. On a CUDA operand ``matvec`` launches the batched chunk kernel
+    once a product in every ``spmv_mode`` but 'segment' (f32/f64; other
+    dtypes raise), with value slots and workspace kept per dtype. On the
+    CPU it keeps the reference's choice over the slab pack: the kernel path
     (its plain version) under 'pallas' within the VMEM gates at f32, the
-    plain batched slab formulation otherwise; 'segment' takes the
-    per-lane segment path, which needs no pack.
+    plain batched slab formulation otherwise; 'segment' takes the per-lane
+    segment path, which needs no pack.
     """
 
     def __init__(self, pattern, values, dtype=None):
@@ -222,7 +235,8 @@ class BatchedCSR(BatchedOperator):
         self.shape = (int(values.shape[0]), m, n)
         self.dtype = values.dtype
         self.device = values.device
-        self._vals_packed = {}  # dtype -> per-slab [B, K, R] planes
+        self._vals_packed = {}  # dtype -> per-slab [B, K, R] planes, or [slots, B] on the card
+        self._ws = {}  # dtype -> SellWorkspace of the batched chunk kernel
 
     @classmethod
     def from_stack(cls, mats, pattern=None):
@@ -259,11 +273,22 @@ class BatchedCSR(BatchedOperator):
         return BatchedCSR(self.pattern, values)
 
     def _packed(self, dt):
-        """(pattern pack, per-slab value planes at ``dt``); packs once."""
+        """(pattern slab pack, per-slab value planes at ``dt``); packs once."""
         pack = self.pattern.sell_pack(self.device)
         if dt not in self._vals_packed:
             self._vals_packed[dt] = pack.pack_values(self.values.to(dt))
         return pack, self._vals_packed[dt]
+
+    def _chunk_packed(self, dt):
+        """(pattern chunk layout, ``[slots, B]`` value slots at ``dt``,
+        workspace) on the card; packs once."""
+        from ..kernels.sell_spmv import SellWorkspace
+
+        ch = self.pattern.sell_chunks(self.device)
+        if dt not in self._vals_packed:
+            self._vals_packed[dt] = ch.pack_values(self.values.to(dt))
+            self._ws[dt] = SellWorkspace(ch, dt, self.batch)
+        return ch, self._vals_packed[dt], self._ws[dt]
 
     def _pallas_viable(self, pack, X) -> bool:
         from ..kernels.sell_spmv import PALLAS_MAX_K, PALLAS_MAX_X
@@ -291,8 +316,8 @@ class BatchedCSR(BatchedOperator):
             return self._matvec_segment(X)
         if X.device.type != "cpu":
             dt = K.kernel_dtype(self.dtype, X.dtype, "batched SELL SpMV")
-            pack, vals = self._packed(dt)
-            return K.sell_spmv_batched(pack.plan, pack.idx_slabs, vals, pack.pos, X.to(dt))
+            ch, vals, ws = self._chunk_packed(dt)
+            return K.sell_chunk_spmv_batched(ch, vals, X.to(dt), ws)
         pack, vals = self._packed(self.dtype)
         if mode == "pallas" and self._pallas_viable(pack, X):
             return K.sell_spmv_batched(pack.plan, pack.idx_slabs, vals, pack.pos, X)
@@ -318,6 +343,10 @@ class BatchedCSR(BatchedOperator):
                 spmv_ops.csr_spmm_segment(indptr, indices, self.values[b], X[b], m)
                 for b in range(self.batch)
             ])
+        if X.device.type != "cpu":  # plain torch over the card's layout
+            ch, vals, _ws = self._chunk_packed(self.dtype)
+            return torch.stack([spmv_ops.csr_spmm_chunks(ch, vals[:, b], X[b])
+                                for b in range(self.batch)])
         pack, vals = self._packed(self.dtype)
         return spmv_ops.csr_spmm_sell_batched(
             pack.idx_slabs, vals, pack.pos, X, pack.plan.zero_rows

@@ -43,9 +43,14 @@ class Settings:
     )
     # max row length (relative to the mean) at which 'auto' takes ELL
     ell_max_ratio: float = 4.0
-    # SELL-C-sigma packing geometry (kernels/sell_spmv.py): chunk height C,
-    # degree-sorting window sigma (0 = one global window) and the number of
-    # distinct chunk widths beyond which widths round up to powers of two
+    # SELL-C-sigma packing geometry of the reference-equal slab pack
+    # (kernels/sell_spmv.py::sell_pack): chunk height C, degree-sorting
+    # window sigma (0 = one global window) and the number of distinct chunk
+    # widths beyond which widths round up to powers of two. They govern the
+    # CPU path, the parity tests and interop; on the card they are TPU
+    # tiling knobs, like PALLAS_MAX_X: the card's chunk layout
+    # (sell_chunk_pack) has its own fixed geometry (32-row chunks, one
+    # global degree sort, per-chunk widths with no cap)
     sell_chunk: int = field(
         default_factory=lambda: max(_env_int("SPARSE_TPU_TORCH_SELL_C", 8), 1)
     )

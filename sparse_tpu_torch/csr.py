@@ -134,8 +134,9 @@ class csr_array(SparseArray):
         """The plan-cached SELL-C-sigma operator (``kernels/sell_spmv.py``),
         or None. Under ``spmv_mode`` 'sell' and 'pallas' it applies to every
         matrix with nonzeros; under 'auto' only where the ELL gate declines
-        (max row length beyond ``ell_max_ratio`` x the mean). One host pack
-        on first use, onto this matrix's device."""
+        (max row length beyond ``ell_max_ratio`` x the mean). Packed once on
+        first use: the chunk layout on the card (built there), the
+        reference's slab pack on the CPU."""
         mode = settings.spmv_mode
         if mode not in ("auto", "sell", "pallas"):
             return None

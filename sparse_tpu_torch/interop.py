@@ -40,7 +40,9 @@ def prepared_csr_from_numpy(slab_meta, geometry, slabs, pos, device=None):
     """A :class:`~sparse_tpu_torch.kernels.sell_spmv.PreparedCSR` from an
     existing SELL pack: ``slab_meta`` as in ``SellPlan``, ``geometry`` =
     ``(m, n, C, sigma, zero_rows, nnz)``, ``slabs`` a sequence of
-    ``(idx_t, val_t)`` numpy pairs and ``pos`` the row map, all unchanged."""
+    ``(idx_t, val_t)`` numpy pairs and ``pos`` the row map, all unchanged.
+    On a CUDA device the operator builds the card's chunk layout from them
+    (``PreparedCSR.from_parts``); the product is the same."""
     from .kernels.sell_spmv import PreparedCSR, SellPlan
 
     dev = resolve_device(device)

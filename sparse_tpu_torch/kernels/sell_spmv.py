@@ -1,23 +1,29 @@
-"""SELL-C-sigma packing and the prepared general (non-banded) SpMV.
+"""SELL packing and the prepared general (non-banded) SpMV.
 
-Port of ``sparse_tpu/kernels/sell_spmv.py``: ``SellPlan`` and ``sell_pack``
-(numpy, the same output as the reference for the same input), the per-slab
-kernels ``sell_spmv_slab`` / ``sell_spmv_slab_batched`` (``csrc/sell_spmv.cu``,
-replacing the Pallas ``_sell_slab_pallas`` and ``_sell_slab_pallas_batched``)
-launched slab by slab from ``sell_spmv`` / ``sell_spmv_batched``, and
-``PreparedCSR``, the packed operator ``csr_array`` caches in ``plan_cache``.
+Port of ``sparse_tpu/kernels/sell_spmv.py``, with two layouts:
 
-Layout: rows are sorted by degree within sigma-row windows, cut into chunks
-of C rows, each chunk padded to its own max degree; chunks of one padded
-width K form a slab, stored as plane-major ``[K, R]`` index and value
-planes. ``pos`` maps each original row to its place in the concatenated
-packed output (slabs in order, then the all-empty rows).
+* ``SellPlan`` and ``sell_pack``: the reference's SELL-C-sigma slab pack
+  (numpy, the same output as the reference for the same input). It serves
+  the CPU path, the parity tests and ``interop``; ``sell_chunk``,
+  ``sell_sigma`` and ``sell_max_slabs`` govern it. ``sell_spmv`` /
+  ``sell_spmv_batched`` run it on CPU tensors (the slab kernels' plain
+  versions, ``ops/spmv.py``), where ``spmv_mode='pallas'`` keeps the
+  reference's path choice; a CUDA tensor raises.
+* ``SellChunks`` and ``sell_chunk_pack``: the card's layout, built on the
+  device in torch ops. One stable sort of the rows by descending degree,
+  chunks of 32 rows (one warp), each at its own width with no cap,
+  slot-major index and value slots, and a work list of segments of at most
+  ``seg`` slots a row. The kernels ``sell_chunk_spmv`` and
+  ``sell_chunk_spmv_batched`` (``csrc/sell_spmv.cu``, replacing the Pallas
+  ``_sell_slab_pallas`` and ``_sell_slab_pallas_batched``) run one product
+  in one launch over it.
 
-Each kernel wrapper runs its plain version (``ops/spmv.py``) for CPU
-tensors only; on a CUDA tensor it launches the kernel or raises. The TPU's
-VMEM gates (``PALLAS_MAX_X``, ``PALLAS_MAX_K``) remain the path choice on
-the CPU, as in the reference; the CUDA kernel reads x through L2 and takes
-any width.
+``PreparedCSR``, the operator ``csr_array`` caches in ``plan_cache``, packs
+the slab layout on the CPU and the chunk layout on a CUDA device. Each
+kernel wrapper runs its plain version for CPU tensors only; on a CUDA
+tensor it launches the kernel or raises. The TPU's VMEM gates
+(``PALLAS_MAX_X``, ``PALLAS_MAX_K``) remain the path choice on the CPU, as
+in the reference; the CUDA kernels read x through L2 and take any width.
 """
 
 from __future__ import annotations
@@ -28,10 +34,12 @@ import numpy as np
 import torch
 
 from ..config import settings
+from ..ops.coords import expand_rows
 from ..ops.spmv import (
-    _sell_slab_spmv,
-    _sell_slab_spmv_batched,
+    csr_spmm_chunks,
     csr_spmm_sell,
+    csr_spmv_chunks,
+    csr_spmv_chunks_batched,
     csr_spmv_sell,
     csr_spmv_sell_batched,
 )
@@ -50,12 +58,16 @@ PALLAS_MAX_K = 128
 KERNEL_DTYPES = (torch.float32, torch.float64)
 _INDEX_DTYPES = (torch.int32, torch.int64)
 
-# split-K rule (sell_split): enough warps to keep the card's 132 SMs busy,
-# at least SPLIT_MIN_PLANES planes per warp, at most SPLIT_MAX_WARPS warps a block
-SPLIT_TARGET_WARPS = 8192
-SPLIT_MIN_PLANES = 32
-SPLIT_MAX_WARPS = 8
-_TILE_ROWS = 32
+#: rows a chunk of the card's layout: one warp, one lane a row
+CHUNK_ROWS = 32
+#: slots a row in one work item (segment) of the chunk layout; it fixes the
+#: summation order, which both kernels and their plain versions share.
+#: Chosen on the H100 (``python3 chip_smoke.py --segment-sweep``): shorter
+#: segments split the widest chunks of a power-law matrix over more warps
+SELL_SEGMENT = 128
+# lanes a block of the batched kernel takes (csrc/sell_spmv.cu kLaneGroup)
+_LANE_GROUP = 64
+_INT32_MAX = 2**31 - 1
 
 
 def _round_up(v: int, m: int) -> int:
@@ -183,34 +195,181 @@ def sell_pack(indptr, indices, data, shape, C=None, sigma=None, max_slabs=None,
 
 
 # ---------------------------------------------------------------------------
+# the card's layout: chunks of 32 rows over one global degree sort
+# ---------------------------------------------------------------------------
+class SellChunks:
+    """The chunked SELL layout of one matrix or pattern, on its device.
+
+    ``perm[p]`` is the row at packed position p (descending degree, ties in
+    row order); chunk c holds positions ``32c .. 32c + 31`` and its slots
+    ``cptr[c] .. cptr[c + 1]``, slot k of its lane r at ``cptr[c] + 32k +
+    r``. ``idx``/``val`` are the index and value slots (``val`` None for a
+    pattern), ``src`` (with ``with_src``) the nonzero each slot holds (-1
+    for a pad slot). ``work`` is int32 ``[nwork, 4]``: chunk, segment,
+    segments of the chunk and the chunk's first partial row (-1 when it has
+    one segment); segment s covers slots ``[s * seg, min((s + 1) * seg,
+    w_c))``. ``npart`` partial rows serve the split chunks.
+    """
+
+    __slots__ = ("m", "n", "nnz", "seg", "slots", "perm", "cptr", "idx", "val", "src",
+                 "work", "nwork", "npart")
+    #: rows a chunk (one warp)
+    rows = CHUNK_ROWS
+
+    def __init__(self, m, n, nnz, seg, slots, perm, cptr, idx, val, src, work, npart):
+        self.m, self.n, self.nnz, self.seg, self.slots = int(m), int(n), int(nnz), int(seg), int(slots)
+        self.perm, self.cptr, self.idx, self.val, self.src = perm, cptr, idx, val, src
+        self.work, self.nwork, self.npart = work, int(work.shape[0]), int(npart)
+
+    @property
+    def nchunks(self) -> int:
+        return int(self.cptr.shape[0]) - 1
+
+    @property
+    def pad_ratio(self) -> float:
+        """Stored slots per nonzero (1.0 = no padding)."""
+        return self.slots / max(self.nnz, 1)
+
+    def pack_values(self, values):
+        """A ``(B, nnz)`` value stack as ``[slots, B]`` (pad slots zero):
+        one gather through ``src``."""
+        g = values[:, self.src.clamp(min=0)]
+        return torch.where(self.src >= 0, g, torch.zeros((), dtype=g.dtype, device=g.device)).t().contiguous()
+
+    def __repr__(self):
+        return (f"SellChunks(m={self.m}, n={self.n}, chunks={self.nchunks}, slots={self.slots}, "
+                f"pad_ratio={self.pad_ratio:.3f}, seg={self.seg}, work={self.nwork}, "
+                f"partial_rows={self.npart})")
+
+
+def _work_list(width, seg: int):
+    """(work ``[nwork, 4]`` int32, npart) for chunk widths ``width``: every
+    chunk cut into ``max(1, ceil(w_c / seg))`` segments, chunk-major."""
+    dev = width.device
+    nseg = ((width + seg - 1) // seg).clamp(min=1)
+    nwork = int(nseg.sum())
+    chunk = torch.repeat_interleave(torch.arange(width.shape[0], device=dev), nseg,
+                                    output_size=nwork)
+    first = torch.cumsum(nseg, 0) - nseg
+    segment = torch.arange(nwork, device=dev) - first[chunk]
+    psz = torch.where(nseg > 1, nseg, 0)
+    pbase = torch.where(nseg > 1, torch.cumsum(psz, 0) - psz, -1)
+    work = torch.stack([chunk, segment, nseg[chunk], pbase[chunk]], dim=1)
+    return work.to(torch.int32).contiguous(), int(psz.sum())
+
+
+def sell_chunk_pack(indptr, indices, data, shape, seg=None, with_src=False) -> SellChunks:
+    """Pack CSR buffers (tensors on one device) into the chunk layout, on
+    that device: a stable sort of the rows by descending degree, a
+    per-chunk max, a cumsum and one scatter of the nonzeros. ``data`` None
+    packs the pattern alone; ``with_src`` keeps each slot's nonzero for
+    :meth:`SellChunks.pack_values`. The work list depends on the chunk
+    widths (so on the pattern) and ``seg`` (default ``SELL_SEGMENT``)
+    only."""
+    seg = int(seg or SELL_SEGMENT)
+    dev = indices.device
+    m, n = int(shape[0]), int(shape[1])
+    nnz = int(indices.shape[0])
+    i64 = dict(dtype=torch.int64, device=dev)
+    ip = indptr.to(**i64)
+    counts = ip[1:] - ip[:-1]
+    perm = torch.sort(-counts, stable=True).indices
+    nch = -(-m // CHUNK_ROWS)
+    if nch > _INT32_MAX:
+        raise ValueError(f"sell_chunk_pack: {nch} chunks do not fit the int32 work list")
+    deg = torch.zeros((nch * CHUNK_ROWS,), **i64)
+    deg[:m] = counts[perm]
+    width = deg.view(nch, CHUNK_ROWS).amax(dim=1) if nch else deg
+    cptr = torch.zeros((nch + 1,), **i64)
+    torch.cumsum(width * CHUNK_ROWS, 0, out=cptr[1:])
+    slots = int(cptr[-1])
+
+    # each nonzero's slot: chunk base + (slot within its row) * 32 + lane
+    rows = expand_rows(ip, nnz)
+    packed = torch.empty((m,), **i64)
+    packed[perm] = torch.arange(m, **i64)
+    p = packed[rows]
+    slot = cptr[p // CHUNK_ROWS] + (torch.arange(nnz, **i64) - ip[rows]) * CHUNK_ROWS + p % CHUNK_ROWS
+    del rows, packed, p
+    wide = indices.dtype == torch.int64 or max(m, n) > _INT32_MAX
+    idt = torch.int64 if wide else torch.int32
+    idx = torch.zeros((slots,), dtype=idt, device=dev)
+    idx[slot] = indices.to(idt)
+    val = None
+    if data is not None:
+        val = torch.zeros((slots,), dtype=data.dtype, device=dev)
+        val[slot] = data
+    src = None
+    if with_src:
+        src = torch.full((slots,), -1, dtype=torch.int32 if nnz < 2**31 else torch.int64, device=dev)
+        src[slot] = torch.arange(nnz, dtype=src.dtype, device=dev)
+    work, npart = _work_list(width, seg)
+    return SellChunks(m, n, nnz, seg, slots, perm.to(idt), cptr, idx, val, src, work, npart)
+
+
+def chunks_from_slabs(plan: SellPlan, slabs, pos) -> SellChunks:
+    """The chunk layout of a matrix given as the reference's slab pack, on
+    the slabs' device: each packed row's slots up to its last one that is
+    not a pad slot (index 0 and value 0) become the row's nonzeros, in slot
+    order. A row's trailing explicit zeros at column 0 are dropped with the
+    pads; they add nothing to y. The work list takes ``SELL_SEGMENT``, so
+    the products equal those of the layout packed from CSR bit for bit."""
+    dev = pos.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    owners, ents_i, ents_v = [], [], []
+    off = 0
+    for (it, vt), (K, R, _pad) in zip(slabs, plan.slab_meta):
+        real = (it != 0) | (vt != 0)
+        length = (real * torch.arange(1, K + 1, **i64)[:, None]).amax(dim=0)
+        r, k = (torch.arange(K, **i64)[None, :] < length[:, None]).nonzero(as_tuple=True)
+        owners.append(off + r)
+        ents_i.append(it[k, r])
+        ents_v.append(vt[k, r])
+        off += R
+    m = plan.m
+    row_of = torch.full((off + plan.zero_rows,), -1, **i64)
+    row_of[pos.to(torch.int64)] = torch.arange(m, **i64)
+    if owners:
+        rows = row_of[torch.cat(owners)]
+        order = torch.sort(rows, stable=True).indices
+        indices, data = torch.cat(ents_i)[order], torch.cat(ents_v)[order]
+        counts = torch.bincount(rows, minlength=m)
+    else:
+        indices = torch.zeros((0,), dtype=torch.int32, device=dev)
+        data = torch.zeros((0,), dtype=torch.float32, device=dev)
+        counts = torch.zeros((m,), **i64)
+    indptr = torch.zeros((m + 1,), **i64)
+    torch.cumsum(counts, 0, out=indptr[1:])
+    return sell_chunk_pack(indptr, indices, data, (plan.m, plan.n))
+
+
+class SellWorkspace:
+    """The chunk kernels' scratch for one layout, value dtype and lane
+    count, allocated once: the split chunks' partials and their integer
+    tickets, zeroed here once; each launch rearms the tickets it takes, so
+    a product needs no fill. One product at a time (one stream) per
+    workspace."""
+
+    __slots__ = ("partials", "tickets", "lanes")
+
+    def __init__(self, ch: SellChunks, dtype, lanes: int = 1):
+        dev = ch.idx.device
+        rows = max(ch.npart, 1)
+        self.lanes = int(lanes)
+        self.partials = torch.empty((rows * CHUNK_ROWS * self.lanes,), dtype=dtype, device=dev)
+        groups = -(-self.lanes // _LANE_GROUP)
+        self.tickets = torch.zeros((rows * groups,), dtype=torch.int32, device=dev)
+
+
+# ---------------------------------------------------------------------------
 # the kernels: csrc/sell_spmv.cu
 # ---------------------------------------------------------------------------
-def sell_split(K: int, R: int):
-    """The kernel's shape for one ``[K, R]`` slab: ``(KS, W, nblk)`` =
-    planes per warp segment, warps per block, blocks per 32-row tile.
-    ``(K, 1, 1)`` is the narrow shape (one thread per row, all K planes,
-    bit-identical to the plain version); anything else splits K when the
-    slab's rows alone give fewer than ``SPLIT_TARGET_WARPS`` warps.
-
-    The shape depends on the slab only, not on the lane count, so each lane
-    of the batched kernel sums in the order of the single-matrix kernel: a
-    lane of a batched solve equals the lone solve bit for bit."""
-    row_warps = -(-R // _TILE_ROWS)
-    nseg = min(-(-SPLIT_TARGET_WARPS // max(row_warps, 1)), -(-K // SPLIT_MIN_PLANES))
-    if nseg <= 1:
-        return K, 1, 1
-    KS = -(-K // nseg)
-    nseg = -(-K // KS)
-    W = min(SPLIT_MAX_WARPS, nseg)
-    return KS, W, -(-nseg // W)
-
-
 _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_SIGNATURE = [_PTR] * 6 + [_I64] * 5 + [_I32] * 3 + [_PTR]
+_SIGNATURE = [_PTR] * 9 + [_I64, _I64, _I32, _I32, _PTR]
 _DT = {torch.float32: "f32", torch.float64: "f64"}
 _IT = {torch.int32: "i32", torch.int64: "i64"}
 _SIGNATURES = {
-    f"stk_sell_spmv_slab{b}_{d}_{i}": _SIGNATURE
+    f"stk_sell_chunk_spmv{b}_{d}_{i}": _SIGNATURE
     for b in ("", "_batched") for d in _DT.values() for i in _IT.values()
 }
 
@@ -219,99 +378,93 @@ def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def _launch(name: str, idx_t, val, x, y, lanes: int, ldy: int) -> None:
-    """Check the operands and launch ``csrc/sell_spmv.cu`` over ``lanes``
-    lanes: ``val`` is ``[lanes, K, R]`` (or ``[K, R]``), ``x`` ``[lanes, n]``
-    (or ``[n]``), lane b of y starts at ``b * ldy``."""
-    if val.dtype != x.dtype or val.dtype != y.dtype or val.dtype not in KERNEL_DTYPES:
-        raise ValueError(
-            f"{name}: values, x and y must share a dtype in {KERNEL_DTYPES} "
-            f"(got {val.dtype}, {x.dtype}, {y.dtype})"
-        )
-    if idx_t.dtype not in _INDEX_DTYPES:
-        raise ValueError(f"{name}: index planes must be int32 or int64 (got {idx_t.dtype})")
-    K, R = idx_t.shape
-    sp = torch.cuda.current_stream(x.device)
-    KS, W, nblk = sell_split(K, R)
-    partials = tickets = None  # only a K range split across blocks needs them
-    if nblk > 1:
-        partials = torch.empty((lanes * nblk * R,), dtype=val.dtype, device=x.device)
-        tiles = -(-R // _TILE_ROWS)
-        tickets = torch.zeros((lanes * tiles,), dtype=torch.int32, device=x.device)
+def _launch(ch: SellChunks, val, x, y, ws, lanes: int, batched: bool) -> None:
+    """Check the operands and launch ``csrc/sell_spmv.cu``: the
+    single-matrix kernel with ``val`` ``[slots]``, x ``[n]`` and y ``[m]``,
+    or the batched one with ``val`` ``[slots, lanes]``, x ``[n, lanes]``
+    and y ``[lanes, m]``."""
+    kind = "_batched" if batched else ""
+    name = f"sell_chunk_spmv{kind}"
+    _build.require_cuda(name, ch.idx, ch.perm, ch.cptr, ch.work, val, x, y)
+    if val.dtype != x.dtype or val.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{name}: values and x must share a dtype in {KERNEL_DTYPES} "
+                         f"(got {val.dtype}, {x.dtype})")
+    if ch.idx.dtype not in _INDEX_DTYPES or ch.perm.dtype != ch.idx.dtype:
+        raise ValueError(f"{name}: index slots and perm must be int32 or int64 alike "
+                         f"(got {ch.idx.dtype}, {ch.perm.dtype})")
+    want = ((ch.slots, lanes), (ch.n, lanes)) if batched else ((ch.slots,), (ch.n,))
+    if (tuple(val.shape), tuple(x.shape)) != want:
+        raise ValueError(f"{name}: values {tuple(val.shape)} and x {tuple(x.shape)} do not fit "
+                         f"{ch} (want {want[0]} and {want[1]})")
+    if ws is None or ws.partials.dtype != val.dtype or ws.lanes != lanes:
+        raise ValueError(f"{name}: needs the operator's SellWorkspace for {val.dtype} and "
+                         f"{lanes} lane(s)")
     lib = _build.library("sell_spmv", _SIGNATURES)
-    kind = "_batched" if name.endswith("_batched") else ""
-    fn = getattr(lib, f"stk_sell_spmv_slab{kind}_{_DT[val.dtype]}_{_IT[idx_t.dtype]}")
+    fn = getattr(lib, f"stk_sell_chunk_spmv{kind}_{_DT[val.dtype]}_{_IT[ch.idx.dtype]}")
     code = fn(
-        idx_t.data_ptr(), val.data_ptr(), x.data_ptr(), y.data_ptr(),
-        None if partials is None else partials.data_ptr(),
-        None if tickets is None else tickets.data_ptr(),
-        K, R, x.shape[-1], ldy, KS, W, nblk, lanes, ctypes.c_void_p(sp.cuda_stream),
+        ch.idx.data_ptr(), val.data_ptr(), x.data_ptr(), y.data_ptr(), ch.perm.data_ptr(),
+        ch.cptr.data_ptr(), ch.work.data_ptr(), ws.partials.data_ptr(), ws.tickets.data_ptr(),
+        ch.m, ch.nwork, ch.seg, lanes, _build.stream_handle(x),
     )
     _build.check_launch(lib, code, name)
 
 
-#: the kernels' plain versions (ops/spmv.py): the same sums in plane order
-sell_spmv_slab_plain = _sell_slab_spmv
-sell_spmv_slab_batched_plain = _sell_slab_spmv_batched
+#: the kernels' plain versions (ops/spmv.py): the same sums in the same order
+sell_chunk_spmv_plain = csr_spmv_chunks
+sell_chunk_spmv_batched_plain = csr_spmv_chunks_batched
 
 
-def sell_spmv_slab(idx_t, val_t, x, out=None):
-    """y_slab = A_slab @ x on one ``[K, R]`` slab; writes into ``out`` (a
-    contiguous ``[R]`` view) when given.
+def sell_chunk_spmv(ch: SellChunks, val, x, ws: SellWorkspace | None = None):
+    """y = A @ x over the chunk layout ``ch`` with value slots ``val``: one
+    launch of ``csrc/sell_spmv.cu``'s single-matrix kernel, y in row order.
 
-    On CPU tensors this runs the plain ``ops.spmv._sell_slab_spmv``; on
-    CUDA tensors it launches ``csrc/sell_spmv.cu`` or raises.
+    On CPU tensors this runs the plain ``ops.spmv.csr_spmv_chunks``; on
+    CUDA tensors it launches the kernel, with the workspace ``ws``
+    (:class:`SellWorkspace` at ``val``'s dtype, one lane), or raises.
     """
-    if _on_cpu(idx_t, val_t, x):
-        y = _sell_slab_spmv(idx_t, val_t, x)
-        return y if out is None else out.copy_(y)
-    name = "sell_spmv_slab"
-    K, R = idx_t.shape
-    y = torch.empty((R,), dtype=val_t.dtype, device=x.device) if out is None else out
-    _build.require_cuda(name, idx_t, val_t, x, y)
-    if tuple(val_t.shape) != (K, R) or x.ndim != 1 or tuple(y.shape) != (R,):
-        raise ValueError(f"{name}: shapes idx {tuple(idx_t.shape)}, val {tuple(val_t.shape)}, "
-                         f"x {tuple(x.shape)}, y {tuple(y.shape)} do not fit")
-    if K == 0:
-        return y.zero_()
-    _launch(name, idx_t, val_t, x, y, 1, R)
-    sell_spmv_slab.launches += 1
+    if _on_cpu(val, x):
+        return csr_spmv_chunks(ch, val, x)
+    y = torch.empty((ch.m,), dtype=val.dtype, device=x.device)
+    if ch.m:
+        _launch(ch, val, x, y, ws, 1, batched=False)
+        sell_chunk_spmv.launches += 1
     return y
 
 
-sell_spmv_slab.launches = 0
+sell_chunk_spmv.launches = 0
 
 
-def sell_spmv_slab_batched(idx_t, val_bt, X, out=None):
-    """Y_slab[b] = A_b,slab @ X[b]: shared ``[K, R]`` index planes, value
-    planes ``[B, K, R]``, X ``[B, n]``; writes into ``out`` (``[B, R]``,
-    rows contiguous, any row stride) when given.
+def sell_chunk_spmv_batched(ch: SellChunks, vals, X, ws: SellWorkspace | None = None):
+    """Y[b] = A_b @ X[b] over one shared chunk layout: value slots
+    ``[slots, B]`` (:meth:`SellChunks.pack_values`), X ``[B, n]``, Y
+    ``[B, m]`` in row order. Each lane sums in :func:`sell_chunk_spmv`'s
+    order, so it equals the lone product bit for bit.
 
-    On CPU tensors this runs the plain
-    ``ops.spmv._sell_slab_spmv_batched``; on CUDA tensors it launches
-    ``csrc/sell_spmv.cu`` over a lane grid dimension or raises.
+    On CPU tensors this runs the plain ``ops.spmv.csr_spmv_chunks_batched``;
+    on CUDA tensors it takes X as ``[n, B]`` (one transpose) and launches
+    the batched kernel once, with the workspace ``ws`` (B lanes), or
+    raises.
     """
-    if _on_cpu(idx_t, val_bt, X):
-        Y = _sell_slab_spmv_batched(idx_t, val_bt, X)
-        return Y if out is None else out.copy_(Y)
-    name = "sell_spmv_slab_batched"
-    K, R = idx_t.shape
+    if _on_cpu(vals, X):
+        return csr_spmv_chunks_batched(ch, vals, X)
     B = X.shape[0]
-    Y = torch.empty((B, R), dtype=val_bt.dtype, device=X.device) if out is None else out
-    _build.require_cuda(name, idx_t, val_bt, X)
-    if Y.device != X.device or Y.stride(-1) != 1 or tuple(Y.shape) != (B, R):
-        raise ValueError(f"{name}: out must be a [{B}, {R}] view with contiguous rows on {X.device}")
-    if tuple(val_bt.shape) != (B, K, R) or X.ndim != 2:
-        raise ValueError(f"{name}: shapes idx {tuple(idx_t.shape)}, val {tuple(val_bt.shape)}, "
-                         f"X {tuple(X.shape)} do not fit")
-    if K == 0 or B == 0:
-        return Y.zero_()
-    _launch(name, idx_t, val_bt, X, Y, B, Y.stride(0))
-    sell_spmv_slab_batched.launches += 1
+    Y = torch.empty((B, ch.m), dtype=vals.dtype, device=X.device)
+    if ch.m and B:
+        _launch(ch, vals, X.t().contiguous(), Y, ws, B, batched=True)
+        sell_chunk_spmv_batched.launches += 1
     return Y
 
 
-sell_spmv_slab_batched.launches = 0
+sell_chunk_spmv_batched.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the reference's slab pack on CPU tensors
+# ---------------------------------------------------------------------------
+def _slabs_on_cpu(what: str, *tensors) -> None:
+    if not _on_cpu(*tensors):
+        raise ValueError(f"{what}: the slab layout runs on CPU tensors only; on a CUDA device "
+                         f"the chunk layout runs (sell_chunk_pack, sell_chunk_spmv)")
 
 
 def _out_dtype(val_dtype, x):
@@ -319,46 +472,17 @@ def _out_dtype(val_dtype, x):
 
 
 def sell_spmv(plan: SellPlan, slabs, pos, x):
-    """y = A @ x: :func:`sell_spmv_slab` per slab into one packed buffer,
-    the all-empty rows zeroed, then the ``pos`` gather back to row order
-    (the reference's XLA glue, plain torch here)."""
-    out_dt = _out_dtype(slabs[0][1].dtype if slabs else x.dtype, x)
-    if not slabs:
-        return torch.zeros((plan.m,), dtype=out_dt, device=x.device)
-    total = sum(R for _, R, _ in plan.slab_meta) + plan.zero_rows
-    packed = torch.empty((total,), dtype=out_dt, device=x.device)
-    off = 0
-    for (idx_t, val_t), (_K, R, _) in zip(slabs, plan.slab_meta):
-        sell_spmv_slab(idx_t, val_t, x, out=packed[off : off + R])
-        off += R
-    packed[off:].zero_()
-    return packed[pos]
-
-
-def sell_spmv_plain(plan: SellPlan, slabs, pos, x):
-    """Plain torch twin of :func:`sell_spmv` (``ops.spmv.csr_spmv_sell``)."""
+    """y = A @ x over the slab pack on CPU tensors: the slab kernels' plain
+    versions slab by slab, the all-empty rows zeroed, then the ``pos``
+    gather (``ops.spmv.csr_spmv_sell``)."""
+    _slabs_on_cpu("sell_spmv", x, pos, *(t for s in slabs for t in s))
     return csr_spmv_sell(slabs, pos, x, plan.zero_rows)
 
 
 def sell_spmv_batched(plan: SellPlan, idx_slabs, val_slabs, pos, X):
-    """Y[b] = A_b @ X[b] over one shared pattern: :func:`sell_spmv_slab_batched`
-    per slab into one packed ``[B, rows]`` buffer, then the ``pos`` gather."""
-    out_dt = _out_dtype(val_slabs[0].dtype if val_slabs else X.dtype, X)
-    B = X.shape[0]
-    if not idx_slabs:
-        return torch.zeros((B, plan.m), dtype=out_dt, device=X.device)
-    total = sum(R for _, R, _ in plan.slab_meta) + plan.zero_rows
-    packed = torch.empty((B, total), dtype=out_dt, device=X.device)
-    off = 0
-    for idx_t, val_bt, (_K, R, _) in zip(idx_slabs, val_slabs, plan.slab_meta):
-        sell_spmv_slab_batched(idx_t, val_bt, X, out=packed[:, off : off + R])
-        off += R
-    packed[:, off:].zero_()
-    return packed[:, pos]
-
-
-def sell_spmv_batched_plain(plan: SellPlan, idx_slabs, val_slabs, pos, X):
-    """Plain torch twin of :func:`sell_spmv_batched`."""
+    """Y[b] = A_b @ X[b] over one shared slab pack on CPU tensors
+    (``ops.spmv.csr_spmv_sell_batched``)."""
+    _slabs_on_cpu("sell_spmv_batched", X, pos, *idx_slabs, *val_slabs)
     return csr_spmv_sell_batched(idx_slabs, val_slabs, pos, X, plan.zero_rows)
 
 
@@ -375,41 +499,52 @@ def kernel_dtype(val_dtype, x_dtype, what: str) -> torch.dtype:
 
 
 class PreparedCSR:
-    """A general CSR operator packed once into the SELL slab layout.
+    """A general CSR operator packed once: the slab pack on the CPU, the
+    chunk layout (:func:`sell_chunk_pack`) on a CUDA device.
 
     ``csr_array`` obtains one through ``plan_cache`` so repeated ``A @ x``
-    and solver loops never repack. ``__call__`` launches the SELL kernel on
-    a CUDA operand (mixed operand dtypes promote; a dtype with no kernel
-    raises); on the CPU it keeps the reference's choice: the kernel path
-    (its plain version here) under ``spmv_mode='pallas'`` within the VMEM
-    gates at f32, the plain slab formulation otherwise.
+    and solver loops never repack. On the card ``__call__`` launches the
+    chunk kernel once a product (mixed operand dtypes promote; a dtype with
+    no kernel raises), with value slots and workspace kept per dtype. On
+    the CPU it keeps the reference's choice: the kernel path (its plain
+    version here) under ``spmv_mode='pallas'`` within the VMEM gates at
+    f32, the plain slab formulation otherwise; both give the same sums.
     """
 
-    __slots__ = ("plan", "slabs", "pos", "_cast", "__weakref__")
+    __slots__ = ("shape", "plan", "slabs", "pos", "chunks", "_cast", "_ws", "__weakref__")
 
     def __init__(self, indptr, indices, data, shape, C=None, sigma=None,
                  max_slabs=None, device=None):
-        self.plan, self.slabs, self.pos = sell_pack(
-            indptr, indices, data, shape, C=C, sigma=sigma, max_slabs=max_slabs,
-            device=device,
-        )
-        self._cast = {}
+        dev = resolve_device(device)
+        self.shape = (int(shape[0]), int(shape[1]))
+        self._cast, self._ws = {}, {}
+        self.plan = self.slabs = self.pos = self.chunks = None
+        if dev.type == "cpu":
+            self.plan, self.slabs, self.pos = sell_pack(
+                indptr, indices, data, shape, C=C, sigma=sigma, max_slabs=max_slabs,
+                device=dev,
+            )
+        else:
+            self.chunks = sell_chunk_pack(*(as_tensor(a, dev) for a in (indptr, indices, data)),
+                                          shape)
 
     @classmethod
     def from_parts(cls, plan: SellPlan, slabs, pos) -> "PreparedCSR":
-        """Reassemble a prepared operator from already-packed parts."""
+        """Reassemble a prepared operator from the parts of a slab pack; on
+        a CUDA device (``pos``'s) the chunk layout is built from them."""
         prep = object.__new__(cls)
-        prep.plan = plan
-        prep.slabs = tuple((it, vt) for it, vt in slabs)
-        prep.pos = pos
-        prep._cast = {}
+        prep.shape = (plan.m, plan.n)
+        prep._cast, prep._ws = {}, {}
+        prep.plan = prep.slabs = prep.pos = prep.chunks = None
+        if pos.device.type == "cpu":
+            prep.plan, prep.slabs, prep.pos = plan, tuple((it, vt) for it, vt in slabs), pos
+        else:
+            prep.chunks = chunks_from_slabs(plan, slabs, pos)
         return prep
 
-    @property
-    def shape(self):
-        return (self.plan.m, self.plan.n)
-
     def _val_dtype(self, x):
+        if self.chunks is not None:
+            return self.chunks.val.dtype
         return self.slabs[0][1].dtype if self.slabs else x.dtype
 
     def _slabs_at(self, dt):
@@ -420,6 +555,14 @@ class PreparedCSR:
             self._cast[dt] = tuple((it, vt.to(dt)) for it, vt in self.slabs)
         return self._cast[dt]
 
+    def _chunk_vals(self, dt):
+        """The chunk layout's value slots at ``dt`` (converted once)."""
+        if self.chunks.val.dtype == dt:
+            return self.chunks.val
+        if dt not in self._cast:
+            self._cast[dt] = self.chunks.val.to(dt)
+        return self._cast[dt]
+
     def _pallas_viable(self, x) -> bool:
         if not self.slabs or x.shape[0] > PALLAS_MAX_X:
             return False
@@ -428,21 +571,29 @@ class PreparedCSR:
         return _out_dtype(self._val_dtype(x), x) == torch.float32
 
     def matvec_plain(self, x):
-        return sell_spmv_plain(self.plan, self.slabs, self.pos, x)
+        if self.chunks is not None:
+            return csr_spmv_chunks(self.chunks, self.chunks.val, x)
+        return csr_spmv_sell(self.slabs, self.pos, x, self.plan.zero_rows)
 
     def matvec_kernel(self, x):
-        dt = _out_dtype(self._val_dtype(x), x)
-        if x.device.type != "cpu":
-            kernel_dtype(self._val_dtype(x), x.dtype, "SELL SpMV")
-        return sell_spmv(self.plan, self._slabs_at(dt), self.pos, x.to(dt))
+        if x.device.type == "cpu":
+            dt = _out_dtype(self._val_dtype(x), x)
+        else:
+            dt = kernel_dtype(self._val_dtype(x), x.dtype, "SELL SpMV")
+        if self.chunks is None:  # the slab pack: CPU tensors only
+            return sell_spmv(self.plan, self._slabs_at(dt), self.pos, x.to(dt))
+        if dt not in self._ws:
+            self._ws[dt] = SellWorkspace(self.chunks, dt)
+        return sell_chunk_spmv(self.chunks, self._chunk_vals(dt), x.to(dt), self._ws[dt])
 
     def matmat(self, B):
+        if self.chunks is not None:
+            return csr_spmm_chunks(self.chunks, self.chunks.val, B)
         return csr_spmm_sell(self.slabs, self.pos, B, self.plan.zero_rows)
 
     def __call__(self, x):
-        if x.device.type != "cpu":
+        if x.device.type != "cpu" or self.chunks is not None:
             return self.matvec_kernel(x)
         if settings.spmv_mode == "pallas" and self._pallas_viable(x):
             return self.matvec_kernel(x)
         return self.matvec_plain(x)
-

@@ -4,11 +4,16 @@ Segment path: per-nnz products reduced by row with ``index_add_``; ELL
 path: one gather per padded-row plane plus adds. Neither is a TPU kernel
 in the reference (both are XLA gathers there), so both stay plain torch.
 
-SELL path (``csr_spmv_sell`` and its batched and SpMM forms): one gather
-per plane of each plane-major ``[K, R]`` slab, summed over k in plane
-order. These are the plain versions of the SELL kernels
-(``kernels/sell_spmv.py``, ``csrc/sell_spmv.cu``) and the path CPU
-tensors take.
+SELL slab path (``csr_spmv_sell`` and its batched and SpMM forms): one
+gather per plane of each plane-major ``[K, R]`` slab of the reference's
+pack, summed over k in plane order: the path CPU tensors take.
+
+SELL chunk path (``csr_spmv_chunks`` and its batched and SpMM forms): the
+plain versions of the chunk kernels (``kernels/sell_spmv.py``,
+``csrc/sell_spmv.cu``) over the card's chunk layout. They loop over at
+most ``seg`` slot steps, vectorised over every work item, then fold each
+split chunk's segment partials in segment order: the kernels' sums in the
+kernels' order, so equal to them bit for bit.
 """
 
 from __future__ import annotations
@@ -121,6 +126,61 @@ def csr_spmm_sell_batched(idx_slabs, val_slabs, pos, X, zero_rows: int):
                       pos, X[b], zero_rows)
         for b in range(X.shape[0])
     ])
+
+
+def _chunk_products(ch, vals, Xt):
+    """``Y[row, b] = sum_k vals[slot, b] * Xt[idx[slot], b]`` over the chunk
+    layout ``ch`` (``kernels.sell_spmv.SellChunks``), in row order: value
+    slots ``[slots, B]`` (or ``[slots, 1]``, broadcast), ``Xt`` ``[n, B]``,
+    Y ``[m, B]``. Each work item sums its segment's slots from 0 in slot
+    order; a split chunk's partials are then summed in segment order."""
+    R = ch.rows
+    out_dt = torch.promote_types(vals.dtype, Xt.dtype)
+    dev = Xt.device
+    nb = Xt.shape[1]
+    wk = ch.work.to(torch.int64)
+    chunk, segment, nseg = wk[:, 0], wk[:, 1], wk[:, 2]
+    base = ch.cptr[chunk]
+    k0 = segment * ch.seg
+    steps = ((ch.cptr[chunk + 1] - base) // R - k0).clamp(min=0, max=ch.seg)
+    lane = torch.arange(R, device=dev)
+    acc = torch.zeros((wk.shape[0], R, nb), dtype=out_dt, device=dev)
+    for t in range(int(steps.max()) if wk.shape[0] else 0):
+        act = (t < steps)[:, None]
+        p = torch.where(act, (base + (k0 + t) * R)[:, None] + lane, 0)
+        term = vals[p].to(out_dt) * Xt[ch.idx[p]].to(out_dt)
+        acc = torch.where(act[..., None], acc + term, acc)
+    first = (segment == 0).nonzero()[:, 0]  # one work item a chunk, chunk order
+    ych = acc[first]
+    split = (nseg[first] > 1).nonzero()[:, 0]
+    if split.numel():
+        fs, ns, ys = first[split], nseg[first[split]], ych[split]
+        for j in range(1, int(ns.max())):
+            more = (j < ns)[:, None, None]
+            ys = torch.where(more, ys + acc[(fs + j).clamp(max=wk.shape[0] - 1)], ys)
+        ych[split] = ys
+    Y = torch.empty((ch.m, nb), dtype=out_dt, device=dev)
+    Y[ch.perm.to(torch.int64)] = ych.reshape(-1, nb)[: ch.m]
+    return Y
+
+
+def csr_spmv_chunks(ch, val, x):
+    """y = A @ x over the chunk layout, value slots ``val`` ``[slots]``:
+    the single-matrix chunk kernel's plain version."""
+    return _chunk_products(ch, val[:, None], x[:, None])[:, 0]
+
+
+def csr_spmv_chunks_batched(ch, vals, X):
+    """Y[b] = A_b @ X[b] over one chunk layout, value slots ``[slots, B]``,
+    X ``[B, n]``, Y ``[B, m]``: the batched chunk kernel's plain version.
+    Lane b equals ``csr_spmv_chunks(ch, vals[:, b], X[b])`` bit for bit."""
+    return _chunk_products(ch, vals, X.t()).t().contiguous()
+
+
+def csr_spmm_chunks(ch, val, B):
+    """C = A @ B (dense ``[n, k]``) over the chunk layout: the same sums
+    for every column of B."""
+    return _chunk_products(ch, val[:, None], B)
 
 
 def csr_spmv_segment_batched(indptr, indices, values, X, m: int):

@@ -32,6 +32,7 @@ from sparse_tpu_torch.batch import (
 )
 from sparse_tpu_torch.interop import batched_csr_from_numpy
 from sparse_tpu_torch.kernels import sell_spmv as K
+from sparse_tpu_torch.ops import spmv as spmv_ops
 
 
 @pytest.fixture(autouse=True)
@@ -119,7 +120,7 @@ def test_batched_plain_matches_pallas_interpret_f32():
     idx = [torch.from_numpy(np.array(i)) for i in pack.idx_slabs]
     vt = [torch.from_numpy(np.array(v)) for v in vplanes]
     pos, Xt = torch.from_numpy(np.array(pack.pos)), torch.from_numpy(X)
-    for got in (K.sell_spmv_batched_plain(plan, idx, vt, pos, Xt),
+    for got in (spmv_ops.csr_spmv_sell_batched(idx, vt, pos, Xt, plan.zero_rows),
                 K.sell_spmv_batched(plan, idx, vt, pos, Xt)):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     # the port's own pattern pack repacks the values identically

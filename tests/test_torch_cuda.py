@@ -107,63 +107,72 @@ def test_dtype_without_kernel_raises_on_card():
 
 
 # ---------------------------------------------------------------------------
-# SELL-C-sigma kernels (csrc/sell_spmv.cu)
+# chunked SELL kernels (csrc/sell_spmv.cu)
 # ---------------------------------------------------------------------------
-def _slab(K, R, dtype, itype, seed, lanes=None):
-    """A random [K, R] slab over x of length n = 3R + 7; ``lanes`` stacks
-    value planes [lanes, K, R]."""
-    rng = np.random.default_rng(seed)
-    n = 3 * R + 7
-    idx = torch.tensor(rng.integers(0, n, (K, R)), dtype=itype, device="cuda")
-    vshape = (K, R) if lanes is None else (lanes, K, R)
-    val = torch.tensor(rng.standard_normal(vshape), dtype=dtype, device="cuda")
-    xshape = (n,) if lanes is None else (lanes, n)
-    x = torch.tensor(rng.standard_normal(xshape), dtype=dtype, device="cuda")
-    return idx, val, x
+def _sell_case(name):
+    import chip_smoke
+
+    return chip_smoke.sell_edge_cases()[name] if name != "skewed" else \
+        chip_smoke.skewed_degree_csr(20000).astype(np.float64)
 
 
-def _hold_against_plain(got, want, idx, val, x, narrow):
-    """Narrow slabs equal the plain version bit for bit; split-K slabs sum
-    in another fixed order: within 4 eps sum_k |val * x| per row."""
-    if narrow:
-        assert torch.equal(got, want)
-        return
-    xg = x[..., idx] if x.ndim == 1 else x[:, idx]  # [K, R] or [B, K, R]
-    mag = (val.abs() * xg.abs()).sum(dim=-2)
-    assert bool(torch.all((got - want).abs() <= 4 * torch.finfo(val.dtype).eps * mag))
+def _chunks(s, dtype, itype, seg=None, with_src=False):
+    from sparse_tpu_torch.kernels import sell_spmv as S
+
+    t = lambda a, dt=None: torch.tensor(np.asarray(a), dtype=dt, device="cuda")  # noqa: E731
+    return S.sell_chunk_pack(t(s.indptr), t(s.indices, itype), t(s.data, dtype), s.shape, seg=seg,
+                             with_src=with_src)
 
 
-SLABS = [(5, 1000), (40, 300), (64, 8), (4096, 64), (8192, 128)]
+SELL_CASES = ["powerlaw", "empty_rows", "dup_cols", "random", "zero_nnz", "skewed"]
 
 
 @pytest.mark.parametrize("itype", [torch.int32, torch.int64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("K_,R", SLABS)
-def test_sell_slab_kernel_vs_plain(K_, R, dtype, itype):
+@pytest.mark.parametrize("seg", [3, None])
+@pytest.mark.parametrize("name", SELL_CASES)
+def test_sell_chunk_kernel_vs_plain(name, seg, dtype, itype):
+    """One launch per product, equal to the plain version bit for bit (the
+    same sums in the same order), repeats equal (tickets rearmed)."""
     from sparse_tpu_torch.kernels import sell_spmv as S
 
-    idx, val, x = _slab(K_, R, dtype, itype, seed=K_ + R)
-    before = S.sell_spmv_slab.launches
-    y = S.sell_spmv_slab(idx, val, x)
+    s = _sell_case(name)
+    ch = _chunks(s, dtype, itype, seg)
+    assert ch.idx.dtype == itype
+    ws = S.SellWorkspace(ch, dtype)
+    x = torch.tensor(np.random.default_rng(1).standard_normal(s.shape[1]), dtype=dtype,
+                     device="cuda")
+    before = S.sell_chunk_spmv.launches
+    y = S.sell_chunk_spmv(ch, ch.val, x, ws)
     torch.cuda.synchronize()
-    assert S.sell_spmv_slab.launches == before + 1
-    narrow = S.sell_split(K_, R)[1:] == (1, 1)
-    _hold_against_plain(y, S.sell_spmv_slab_plain(idx, val, x), idx, val, x, narrow)
-    assert torch.equal(y, S.sell_spmv_slab(idx, val, x))  # fixed order: repeats equal
+    assert S.sell_chunk_spmv.launches == before + (1 if s.shape[0] else 0)
+    assert torch.equal(y, S.sell_chunk_spmv_plain(ch, ch.val, x))
+    assert torch.equal(y, S.sell_chunk_spmv(ch, ch.val, x, ws))
 
 
+@pytest.mark.parametrize("lanes", [1, 3, 70])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("K_,R", SLABS)
-def test_sell_slab_batched_kernel_vs_plain(K_, R, dtype):
+@pytest.mark.parametrize("name", ["powerlaw", "skewed", "empty_rows"])
+def test_sell_chunk_batched_kernel_vs_plain(name, dtype, lanes):
+    """One launch per batched product, equal to its plain version and, lane
+    by lane, to the single-matrix kernel bit for bit (70 lanes: two lane
+    groups)."""
     from sparse_tpu_torch.kernels import sell_spmv as S
 
-    idx, val, X = _slab(K_, R, dtype, torch.int32, seed=K_ * R, lanes=3)
-    before = S.sell_spmv_slab_batched.launches
-    Y = S.sell_spmv_slab_batched(idx, val, X)
+    s = _sell_case(name)
+    ch = _chunks(s, dtype, torch.int32, seg=5, with_src=True)
+    rng = np.random.default_rng(2)
+    V = torch.tensor(s.data[None] * (1 + rng.random((lanes, s.nnz))), dtype=dtype, device="cuda")
+    X = torch.tensor(rng.standard_normal((lanes, s.shape[1])), dtype=dtype, device="cuda")
+    vals = ch.pack_values(V)
+    before = S.sell_chunk_spmv_batched.launches
+    Y = S.sell_chunk_spmv_batched(ch, vals, X, S.SellWorkspace(ch, dtype, lanes))
     torch.cuda.synchronize()
-    assert S.sell_spmv_slab_batched.launches == before + 1
-    narrow = S.sell_split(K_, R)[1:] == (1, 1)
-    _hold_against_plain(Y, S.sell_spmv_slab_batched_plain(idx, val, X), idx, val, X, narrow)
+    assert S.sell_chunk_spmv_batched.launches == before + 1
+    assert torch.equal(Y, S.sell_chunk_spmv_batched_plain(ch, vals, X))
+    ws1 = S.SellWorkspace(ch, dtype)
+    for b in range(lanes):
+        assert torch.equal(Y[b], S.sell_chunk_spmv(ch, vals[:, b].contiguous(), X[b], ws1))
 
 
 def test_sell_complex_raises_on_card():
@@ -191,22 +200,43 @@ def _skewed_csr(m):
 
 
 def test_auto_skewed_matrix_launches_sell_kernel():
+    """``A @ x`` is one launch of the chunk kernel, y in row order."""
     from sparse_tpu_torch import plan_cache
     from sparse_tpu_torch.kernels import sell_spmv as S
 
     s = _skewed_csr(20000)
     A = st.csr_array(s)
     x = torch.rand(20000, device="cuda")
-    before = S.sell_spmv_slab.launches
+    before = S.sell_chunk_spmv.launches
     y = A @ x
     prep = plan_cache.lookup(A, "sell")
-    assert prep is not None
-    assert S.sell_spmv_slab.launches == before + len(prep.plan.slab_meta)
+    assert prep is not None and prep.chunks is not None and prep.slabs is None
+    assert S.sell_chunk_spmv.launches == before + 1
     want = s.astype(np.float64) @ x.double().cpu().numpy()
     mag = abs(s).astype(np.float64) @ x.double().cpu().numpy()
     rowlen = np.diff(s.indptr) + 2
     err = np.abs(y.double().cpu().numpy() - want)
     assert np.all(err <= rowlen * np.finfo(np.float32).eps * mag)
+
+
+def test_from_parts_and_interop_build_chunks_on_card():
+    """A slab pack carried to the card becomes the chunk layout of its CSR:
+    the same y bit for bit as the operator packed from the CSR."""
+    from sparse_tpu_torch.interop import prepared_csr_from_numpy
+    from sparse_tpu_torch.kernels import sell_spmv as S
+
+    s = _sell_case("powerlaw")
+    plan, slabs, pos = S.sell_pack(s.indptr, s.indices, s.data, s.shape, C=4, sigma=16,
+                                   max_slabs=3, device="cpu")
+    prep = prepared_csr_from_numpy(plan.slab_meta, (plan.m, plan.n, plan.C, plan.sigma,
+                                                    plan.zero_rows, plan.nnz),
+                                   [(i.numpy(), v.numpy()) for i, v in slabs], pos.numpy())
+    direct = S.PreparedCSR(s.indptr, s.indices, s.data, s.shape)
+    assert prep.chunks is not None and prep.slabs is None
+    x = torch.tensor(np.random.default_rng(3).standard_normal(s.shape[1]), device="cuda")
+    assert torch.equal(prep(x), direct(x))
+    np.testing.assert_allclose(prep(x).cpu().numpy(), s @ x.cpu().numpy(), rtol=1e-12,
+                               atol=1e-12)
 
 
 def test_batched_cg_launches_batched_kernel():
@@ -220,9 +250,10 @@ def test_batched_cg_launches_batched_kernel():
     bc = BatchedCSR(s, torch.tensor(vals, device="cuda"))
     b = torch.tensor(rng.standard_normal((4, 4096)), dtype=torch.float32, device="cuda")
     tol = 1e-5 * torch.linalg.vector_norm(b, dim=1)
-    before = S.sell_spmv_slab_batched.launches
+    before = S.sell_chunk_spmv_batched.launches
+    bc.matvec(b)
+    assert S.sell_chunk_spmv_batched.launches == before + 1
     X, info = batched_cg(bc, b, tol=tol, maxiter=2000)
-    assert S.sell_spmv_slab_batched.launches > before
     assert bool(info.converged.all())
     for i in range(4):
         xu, iu = linalg.cg(bc.lane(i), b[i], tol=float(tol[i]), maxiter=2000)

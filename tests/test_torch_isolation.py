@@ -28,6 +28,7 @@ def test_import_pulls_in_neither_jax_nor_sparse_tpu():
         "import sparse_tpu_torch.kernels.cg_dia, sparse_tpu_torch.kernels.dia_spmv\n"
         "import sparse_tpu_torch.interop, sparse_tpu_torch.plan_cache\n"
         "import sparse_tpu_torch.kernels.sell_spmv, sparse_tpu_torch.batch\n"
+        "import sparse_tpu_torch.kernels._build, sparse_tpu_torch.ops.spmv\n"
         "import sparse_tpu_torch.batch.krylov, sparse_tpu_torch.batch.operator\n"
         "import sparse_tpu_torch.models, sparse_tpu_torch.models.poisson\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sparse_tpu'))\n"

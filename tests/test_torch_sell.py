@@ -2,11 +2,12 @@
 
 The port's ``sell_pack`` must give the reference's pack exactly (plan,
 index and value planes, ``pos``, ``srcs``) over tests/test_sell_spmv.py's
-geometry grid and edge cases. The SELL kernel's plain version, run on a
-reference pack carried across by ``interop``, is held against the Pallas
+geometry grid and edge cases. The slab path's plain versions, run on a
+reference pack carried across by ``interop``, are held against the Pallas
 kernel in interpret mode (f32, the reference tests' 1e-5), the XLA slab
 formulation (f64: both sum the same products in plane order, 1e-12) and
-scipy. ``csr_array @ x`` must agree with sparse_tpu in every ``spmv_mode``
+scipy. (The card's chunk layout has its own tests,
+tests/test_torch_sell_chunks.py.) ``csr_array @ x`` must agree with sparse_tpu in every ``spmv_mode``
 with the plan cache on and off, and ``linalg.cg`` on a skewed SPD matrix
 must take the reference's iterations.
 """
@@ -129,8 +130,7 @@ def test_sell_plain_matches_pallas_interpret_f32(seed):
     x = np.random.default_rng(1).standard_normal(s.shape[1]).astype(np.float32)
     want = np.asarray(sell_spmv_pallas(plan, slabs, pos, x, interpret=True))
     xt = torch.from_numpy(x)
-    for got in (K.sell_spmv_plain(prep.plan, prep.slabs, prep.pos, xt),
-                K.sell_spmv(prep.plan, prep.slabs, prep.pos, xt)):
+    for got in (prep.matvec_plain(xt), K.sell_spmv(prep.plan, prep.slabs, prep.pos, xt)):
         assert got.dtype == torch.float32
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(want, (s.astype(np.float32) @ x), rtol=1e-4, atol=1e-4)
@@ -257,22 +257,34 @@ def test_sell_plan_dies_with_matrix():
 
 
 # ---------------------------------------------------------------------------
-# the kernel wrappers and the split-K rule
+# the kernel wrappers
 # ---------------------------------------------------------------------------
 def test_wrappers_take_plain_path_only_for_cpu_tensors():
+    """CPU tensors run the plain versions (no launch counted); off the CPU
+    the chunk wrappers launch or raise, and the slab pack raises."""
     s = powerlaw_csr(60, seed=3)
     plan, slabs, pos = K.sell_pack(s.indptr, s.indices, s.data, s.shape)
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(60))
-    before = (K.sell_spmv_slab.launches, K.sell_spmv_slab_batched.launches)
-    K.sell_spmv(plan, slabs, pos, x)
-    K.sell_spmv_batched(plan, [it for it, _ in slabs], [vt[None] for _, vt in slabs], pos, x[None])
-    assert (K.sell_spmv_slab.launches, K.sell_spmv_slab_batched.launches) == before
+    ch = K.sell_chunk_pack(*(torch.from_numpy(a) for a in (s.indptr, s.indices, s.data)), s.shape)
+    before = (K.sell_chunk_spmv.launches, K.sell_chunk_spmv_batched.launches)
+    y = K.sell_spmv(plan, slabs, pos, x)
+    Y = K.sell_spmv_batched(plan, [it for it, _ in slabs], [vt[None] for _, vt in slabs], pos, x[None])
+    yc = K.sell_chunk_spmv(ch, ch.val, x)
+    Yc = K.sell_chunk_spmv_batched(ch, ch.val[:, None], x[None])
+    assert (K.sell_chunk_spmv.launches, K.sell_chunk_spmv_batched.launches) == before
+    for got in (Y[0], yc, Yc[0]):
+        np.testing.assert_allclose(got.numpy(), y.numpy(), rtol=1e-12, atol=1e-12)
     it, vt = slabs[0]
     meta = lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta")  # noqa: E731
     with pytest.raises(ValueError, match="CUDA"):
-        K.sell_spmv_slab(meta(it), meta(vt), meta(x))
+        K.sell_spmv(plan, ((meta(it), meta(vt)),), pos, meta(x))
     with pytest.raises(ValueError, match="CUDA"):
-        K.sell_spmv_slab_batched(meta(it), meta(vt[None]), meta(x[None]))
+        K.sell_spmv_batched(plan, [meta(it)], [meta(vt[None])], pos, meta(x[None]))
+    with pytest.raises(ValueError, match="CUDA"):
+        K.sell_chunk_spmv(ch, meta(ch.val), meta(x), K.SellWorkspace(ch, ch.val.dtype))
+    with pytest.raises(ValueError, match="CUDA"):
+        K.sell_chunk_spmv_batched(ch, meta(ch.val[:, None]), meta(x[None]),
+                                  K.SellWorkspace(ch, ch.val.dtype, 1))
 
 
 def test_dtype_without_kernel_raises_off_the_cpu():
@@ -286,29 +298,6 @@ def test_dtype_without_kernel_raises_off_the_cpu():
     prep = K.PreparedCSR(s.indptr, s.indices, s.data, s.shape)
     with pytest.raises(TypeError, match="no CUDA kernel"):
         prep(torch.empty((40,), dtype=torch.complex64, device="meta"))
-
-
-@pytest.mark.parametrize("K_,R", [(16, 2_000_000), (64, 8), (131072, 128), (4096, 8), (100, 30000),
-                                  (32, 8), (7, 8)])
-def test_sell_split_covers_every_plane_once(K_, R):
-    KS, W, nblk = K.sell_split(K_, R)
-    nseg = W * nblk
-    assert 1 <= W <= K.SPLIT_MAX_WARPS and 1 <= nblk <= 65535
-    assert KS * nseg >= K_ and KS * (nseg - W) < K_  # the last block has work
-    if (W, nblk) == (1, 1):
-        assert KS == K_
-    else:
-        assert KS >= K.SPLIT_MIN_PLANES or KS * nseg < 2 * K_
-
-
-def test_sell_split_rule_at_the_slice_sizes():
-    """Narrow for short or tall slabs; split-K for the wide tail slab of a
-    power-law matrix (K = 131072, R = 128) and the batched tail slab."""
-    assert K.sell_split(16, 1 << 20) == (16, 1, 1)
-    assert K.sell_split(32, 8) == (32, 1, 1)
-    KS, W, nblk = K.sell_split(131072, 128)
-    assert W == K.SPLIT_MAX_WARPS and KS * W * nblk >= 131072 and nblk > 1
-    assert K.sell_split(4096, 8)[1:] != (1, 1)
 
 
 # ---------------------------------------------------------------------------
