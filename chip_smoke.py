@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch / H100 port (``sparse_tpu_torch``).
 
-    python3 chip_smoke.py [--segment-sweep]
+    python3 chip_smoke.py [--segment-sweep] [--window-sweep]
 
 Needs one CUDA card, ``nvcc`` and the repository checkout beside this file;
 exits non-zero without them, and on any failed check. Phases, in the order
-they run (1, 2a-2e, 3, 5, 6, 7, 8, 4):
+they run (1, 2a-2e, 3, 5, 6, 7, 8, 9, 4):
 
 1. card name and power limit; build the CUDA kernels (csrc/*.cu) and time it;
 2. each kernel against its plain torch version on the card: (a, b) the DIA
@@ -18,10 +18,13 @@ they run (1, 2a-2e, 3, 5, 6, 7, 8, 4):
    and 6, each batched lane against the single-matrix kernel, and a complex
    operand must raise; (d) the
    column-indexed DIA SpMV, bit for bit in f32 and f64, on the edge cases,
-   a wide matrix and the 6000^2 planes; (e) the one-pass CG kernel at
-   6000^2 with f32, bf16 and f64 planes: one iteration (vectors bit for
-   bit, dots within their summation bound), 20 iterations, bf16 planes
-   equal to f32 planes; a dtype with no kernel must raise;
+   a wide matrix and the 6000^2 planes; (e) the one-pass CG kernels: the
+   windowed kernel at 6000^2 with f32, bf16 and f64 planes, the wide
+   kernel on the 3-D Laplacian at 200^3, whose band the window cannot
+   hold: one iteration (vectors bit for
+   bit, dots within their summation bound), 20 iterations against the
+   plain loop and twice bit-identical, bf16 planes equal to f32 planes; a
+   dtype with no kernel must raise;
 3. the main path, as examples/pde.py drives it, at the reference's per-GPU
    size (6000^2 = 36e6 unknowns, float32): diags -> tocsc -> .T -> tocsr,
    y = A @ ones against a host f64 reference on sampled rows, a 300-iteration
@@ -42,16 +45,22 @@ they run (1, 2a-2e, 3, 5, 6, 7, 8, 4):
    the true residual in f64;
 8. bench.py::run_fused's sweep at 6000^2, 300 iterations: two-pass and
    one-pass, f32 and bf16 planes, each gated on its final rho (finite, at
-   most 10x the two-pass rho) and timed best of 3;
+   most 10x the two-pass rho) and timed best of 3; the one-pass variants
+   run the windowed kernel only, 300 launches a solve;
+9. one-pass CG on the 7-point 3-D Laplacian at 200^3 (offsets +-40000,
+   f32), 100 iterations through the wide kernel only, its true residual
+   within 10x of the two-pass fused CG's;
 4. times from CUDA events: each kernel, its plain version, its bound, and
    where one exists the PyTorch library call computing the same function;
    for the SELL kernels also the x gather's sectors, the layout's bytes
    beyond the function's, the single kernel on lane-contiguous columns and
    torch.profiler's list of the kernels one product launches; with
    ``--segment-sweep`` both SELL kernels at six segment lengths (the
-   experiment that chose ``SELL_SEGMENT``).
+   experiment that chose ``SELL_SEGMENT``); with ``--window-sweep`` the
+   windowed and the wide one-pass kernel on 2-D and 3-D Laplacians of
+   several sizes (the experiment behind ``cgcg_iteration``'s choice).
 
-Each of the five paths (3, 5, 6, 7, 8) runs with every kernel's launch
+Each of the six paths (3, 5, 6, 7, 8, 9) runs with every kernel's launch
 counter set to 0 just before it and read just after; each kernel of the
 path must have launched.
 
@@ -547,29 +556,111 @@ def onepass_stepper(kernel, stream, packed, b, plan, ws=None):
     return step
 
 
-def check_cgcg_kernel(dev, grid: int):
-    """Phase 2e: the one-pass CG kernel at the grid^2 Laplacian of phase 8.
+def laplacian_3d_dia(n: int, dev, dtype=None):
+    """The 7-point Dirichlet Laplacian on an n^3 grid (diagonal 6, -1 to
+    each neighbour) as scipy-layout DIA planes [7, n^3] (``data[k, j] =
+    A[j - o_k, j]``) and offsets (-n^2, -n, -1, 0, 1, n, n^2), built on
+    the device."""
+    import torch
 
-    One launch from the same random state for f32, bf16 and f64 planes:
-    p, x, r', w', s' equal the plain version bit for bit (same elementwise
-    operations, scalars formed the same way). The dots <r', r'> and
-    <w', r'> sum in other orders: the kernel's, kt = ceil(m_pad / (nblocks
-    * 256)) terms a thread in sequence, then a 256-lane tree, then each of
-    256 threads over at most 4 block partials and a 256-lane tree, is held
-    against the sum in f64 at (kt + 20) u S, u = eps / 2, S = sum |terms|
-    (the recursive-summation bound); the plain version's distance to it
-    is reported. Then 20 iterations of ``cg_dia_fused_onepass`` against
-    the plain loop (x within 1e-4 of max |x|: the dots' last-bit
-    differences move alpha and beta), f32 and bf16 planes giving the same
-    x bit for bit (the Laplacian's values are exact in bf16), for the
-    two-pass iteration too. Returns (max vector |kernel - plain| in f32,
-    the timing state)."""
+    dtype = dtype or torch.float32
+    N = n**3
+    c = torch.arange(N, device=dev)
+    i, j, k = c % n, (c // n) % n, c // (n * n)
+    offsets = (-n * n, -n, -1, 0, 1, n, n * n)
+    # column c of plane o couples row c - o: a neighbour inside the grid
+    valid = {-n * n: k < n - 1, -n: j < n - 1, -1: i < n - 1, 1: i > 0, n: j > 0, n * n: k > 0}
+    data = torch.stack([torch.full((N,), 6.0, dtype=dtype, device=dev) if o == 0 else
+                        torch.where(valid[o], -1.0, 0.0).to(dtype) for o in offsets])
+    return data, offsets
+
+
+def hold_cgcg_launch(label, kernel, stream, plan, ws, kt, dev, seed=5, **kw):
+    """One launch of ``kernel(..., plan, ws, **kw)`` (a one-pass wrapper)
+    from a random state against ``cgcg_kernel_plain``: p, x, r', w' and s'
+    bit for bit (the same elementwise operations, the scalars formed the
+    same way), one launch counted, rho_prev and alpha_prev equal, and
+    the dots <r', r'> and <w', r'>, which sum in other orders, within (kt +
+    20) u S of the sum in f64 (u = eps / 2, S = sum |terms|): kt terms a
+    thread in sequence, a 256-lane tree, the last block's 256 threads over
+    at most 5 block partials each and a 256-lane tree. Returns (max
+    |kernel - plain| over the vectors, r's interior rows)."""
+    import torch
+    from sparse_tpu_torch.kernels import cg_dia as C
+
+    dt = ws.partials.dtype
+    N, B, mp = plan.m, plan.B, plan.m_pad
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    vec = lambda: C._pad_vec(torch.randn((N,), dtype=dt, device=dev, generator=gen), plan)  # noqa: E731
+    r, w, s, p, x = vec(), vec(), vec(), vec(), vec()
+    sc = torch.tensor([2.0, 1.5, 0.7, 0.9], dtype=dt, device=dev)
+    outs = []
+    for fn in (kernel, C.cgcg_kernel_plain):
+        pk, xk, sck = p.clone(), x.clone(), sc.clone()
+        ro, wo, so = torch.zeros_like(r), torch.zeros_like(r), torch.zeros_like(r)
+        if fn is kernel:
+            before = kernel.launches
+            fn(stream, r, w, s, pk, xk, ro, wo, so, sck, plan, ws, **kw)
+            if dev == "cuda" and kernel.launches != before + 1:
+                raise AssertionError(f"{label}: {kernel.__name__} did not count one launch")
+        else:
+            fn(stream, r, w, s, pk, xk, ro, wo, so, sck, plan)
+        outs.append((pk, xk, ro, wo, so, sck))
+    err = max(float((a - b).abs().max()) for a, b in zip(outs[0][:5], outs[1][:5]))
+    check(all(torch.equal(a, b) for a, b in zip(outs[0][:5], outs[1][:5])),
+          f"{label}: p, x, r', w', s' equal the plain version bit for bit")
+    (_, _, ro, wo, _, scp), sck = outs[1], outs[0][5]
+    rm, wm = ro[B : B + mp].double(), wo[B : B + mp].double()
+    u = torch.finfo(dt).eps / 2
+    for slot, name, terms in ((C.RHO, "<r', r'>", rm * rm), (C.MU, "<w', r'>", wm * rm)):
+        exact, S = float(terms.sum()), float(terms.abs().sum())
+        dk, dp = abs(float(sck[slot]) - exact), abs(float(scp[slot]) - exact)
+        check(dk <= (kt + 20) * u * S,
+              f"{label} {name}: |kernel - f64| = {dk / (u * S):.3g} u S <= (kt + 20) u S, kt = {kt} "
+              f"(plain: {dp / (u * S):.3g} u S; |kernel - plain| "
+              f"{abs(float(sck[slot]) - float(scp[slot])):.3g})")
+        del terms
+    check(bool(torch.equal(sck[[C.RHO_PREV, C.ALPHA_PREV]], scp[[C.RHO_PREV, C.ALPHA_PREV]])),
+          f"{label}: rho_prev and alpha_prev equal the plain version")
+    return err, r[B : B + N].clone()
+
+
+def window_kt(ws, stream, dev):
+    """kt of the windowed kernel's dots (its geometry on the card; the plain
+    version sums with torch's dot on the CPU)."""
+    if dev != "cuda":
+        return 1
+    return ws.window(stream.dtype)[0].terms_per_thread
+
+
+def show_window(geo, tag):
+    print(f"  window ({tag}): schedule {geo.schedule!r}, lo {geo.lo}, hi {geo.hi}, "
+          f"{geo.shared_bytes} B of shared memory of {geo.smem_per_block}, {geo.nblocks} blocks "
+          f"over {geo.ntiles} tiles ({geo.rows_per_block} rows a block), "
+          f"{geo.terms_per_thread} dot terms a thread", flush=True)
+
+
+def check_cgcg_kernel(dev, grid: int, wide_n: int):
+    """Phase 2e: the one-pass CG kernels. The windowed kernel at the grid^2
+    Laplacian of phase 8, one launch from the same random state for f32,
+    bf16 and f64 planes (the f32 vectors' schedule with its cp.async
+    staging area, the f64 one without), held by :func:`hold_cgcg_launch`
+    with kt its geometry's terms a thread. The wide kernel the same way on
+    the 3-D Laplacian at wide_n^3, whose window exceeds a block's shared
+    memory (there the windowed wrapper must refuse and ``cgcg_iteration``
+    choose the wide kernel).
+    Then 20 iterations of ``cg_dia_fused_onepass`` against the plain loop
+    (x within 1e-4 of max |x|: the dots' last-bit differences move alpha
+    and beta), two such solves equal bit for bit, f32 and bf16 planes giving
+    the same x bit for bit (the Laplacian's values are exact in bf16), for
+    the two-pass iteration too. Returns (max vector |kernel - plain| in f32
+    for the windowed and the wide kernel, the timing states)."""
     import torch
     from sparse_tpu_torch.kernels import cg_dia as C
     from sparse_tpu_torch.kernels import dia_spmv as D
     from sparse_tpu_torch.models import laplacian_2d_dia
 
-    print("phase 2e: one-pass CG kernel vs plain", flush=True)
+    print("phase 2e: one-pass CG kernels vs plain", flush=True)
     N = grid * grid
     worst, keep = 0.0, None
     for dt, pdt in ((torch.float32, None), (torch.float32, torch.bfloat16), (torch.float64, None)):
@@ -578,47 +669,49 @@ def check_cgcg_kernel(dev, grid: int):
         packed = D.dia_pack(planes, plan)
         del planes
         stream = packed if pdt is None else packed.to(pdt)
-        gen = torch.Generator(device=dev).manual_seed(5)
-        vec = lambda: C._pad_vec(torch.randn((N,), dtype=dt, device=dev, generator=gen), plan)
-        r, w, s, p, x = vec(), vec(), vec(), vec(), vec()
-        sc = torch.tensor([2.0, 1.5, 0.7, 0.9], dtype=dt, device=dev)
         ws = C.CgWorkspace(plan, dt, dev)
-        outs = []
-        for kernel in (True, False):
-            pk, xk, sck = p.clone(), x.clone(), sc.clone()
-            ro, wo, so = torch.zeros_like(r), torch.zeros_like(r), torch.zeros_like(r)
-            if kernel:
-                C.cgcg_kernel(stream, r, w, s, pk, xk, ro, wo, so, sck, plan, ws)
-            else:
-                C.cgcg_kernel_plain(stream, r, w, s, pk, xk, ro, wo, so, sck, plan)
-            outs.append((pk, xk, ro, wo, so, sck))
         tag = f"{dt} vectors, {pdt or dt} planes"
-        err = max(float((a - b).abs().max()) for a, b in zip(outs[0][:5], outs[1][:5]))
-        check(all(torch.equal(a, b) for a, b in zip(outs[0][:5], outs[1][:5])),
-              f"cgcg_kernel ({tag}): p, x, r', w', s' equal the plain version bit for bit")
-        (_, _, ro, wo, _, scp), sck = outs[1], outs[0][5]
-        B, mp = plan.B, plan.m_pad
-        rm, wm = ro[B : B + mp].double(), wo[B : B + mp].double()
-        kt = -(-mp // (ws.nblocks * 256))
-        u = torch.finfo(dt).eps / 2
-        for slot, label, terms in ((C.RHO, "<r', r'>", rm * rm), (C.MU, "<w', r'>", wm * rm)):
-            exact, S = float(terms.sum()), float(terms.abs().sum())
-            dk, dp = abs(float(sck[slot]) - exact), abs(float(scp[slot]) - exact)
-            check(dk <= (kt + 20) * u * S,
-                  f"cgcg_kernel ({tag}) {label}: |kernel - f64| = {dk / (u * S):.3g} u S <= "
-                  f"(kt + 20) u S, kt = {kt} (plain: {dp / (u * S):.3g} u S; |kernel - plain| "
-                  f"{abs(float(sck[slot]) - float(scp[slot])):.3g})")
-            del terms
-        check(bool(torch.equal(sck[[C.RHO_PREV, C.ALPHA_PREV]], scp[[C.RHO_PREV, C.ALPHA_PREV]])),
-              f"cgcg_kernel ({tag}): rho_prev and alpha_prev equal the plain version")
+        if dev == "cuda":
+            geo = ws.window(stream.dtype)[0]
+            show_window(geo, tag)
+            check(geo.windowed, f"the {grid}^2 window fits a block's shared memory and a block "
+                                f"owns {C.WINDOW_MIN_RATIO} spans of rows or more ({tag})")
+        err, b = hold_cgcg_launch(f"cgcg_kernel ({tag})", C.cgcg_kernel, stream, plan, ws,
+                                  window_kt(ws, stream, dev), dev)
         if dt == torch.float32 and pdt is None:
-            worst, keep = err, (plan, packed, r[plan.B : plan.B + N].clone(), ws)
-        del outs, rm, wm
+            worst, keep = err, (plan, packed, b, ws)
+        del packed, stream
+    # the wide kernel, on a band past the window's capacity
+    planes3, offs3 = laplacian_3d_dia(wide_n, dev)
+    N3 = wide_n**3
+    plan3 = D.dia_plan(offs3, (N3, N3))
+    packed3 = D.dia_pack(planes3, plan3)
+    ws3 = C.CgWorkspace(plan3, torch.float32, dev)
+    if dev == "cuda":
+        geo3 = ws3.window(packed3.dtype)[0]
+        check(not geo3.fits, f"the {wide_n}^3 Laplacian's window ({geo3.shared_bytes} B) exceeds a "
+                             f"block's shared memory ({geo3.smem_per_block} B)")
+        z = torch.zeros(plan3.m_pad + 2 * plan3.B, device=dev)
+        try:
+            C.cgcg_kernel(packed3, z, z, z, z, z, z, z, z, torch.zeros(4, device=dev), plan3, ws3)
+            refused = ""
+        except ValueError as e:
+            refused = str(e)
+        check("cgcg_kernel_wide takes this band" in refused,
+              f"the windowed wrapper refuses that band: {refused!r}")
+        del z
+    kt3 = -(-plan3.m_pad // (ws3.nblocks * 256))  # the grid-stride loop's rows a thread
+    worst_wide, b3 = hold_cgcg_launch(f"cgcg_kernel_wide (float32, {wide_n}^3)", C.cgcg_kernel_wide,
+                                      packed3, plan3, ws3, kt3, dev)
+    keep_wide = (plan3, packed3, b3, ws3)
+    del planes3
     # 20 iterations, kernel against the plain loop, from b = r's rows
     plan, packed, b = keep[0], keep[1], keep[2]
     B, mp = plan.B, plan.m_pad
     planes, offs = laplacian_2d_dia(grid, dtype=torch.float32, device=dev)
     xk = C.cg_dia_fused_onepass(planes, offs, b, None, N, iters=20)[0].clone()
+    xk2 = C.cg_dia_fused_onepass(planes, offs, b, None, N, iters=20)[0]
+    check(bool(torch.equal(xk, xk2)), "two 20-iteration one-pass solves give x bit for bit")
     step = onepass_stepper(C.cgcg_kernel_plain, packed, packed, b, plan)
     for _ in range(20):
         step()
@@ -627,14 +720,14 @@ def check_cgcg_kernel(dev, grid: int):
     check(err20 <= 1e-4 * float(xpl.abs().max()),
           f"20 one-pass iterations: max |kernel - plain| = {err20:.3g} (max |x| "
           f"{float(xpl.abs().max()):.3g}; bound 1e-4 of it)")
-    del step
+    del step, xk2
     for fn, label in ((C.cg_dia_fused_onepass, "one-pass"), (C.cg_dia_fused, "two-pass")):
         x32 = fn(planes, offs, b, None, N, iters=20)[0].clone()
         xbf = fn(planes, offs, b, None, N, iters=20, plane_dtype=torch.bfloat16)[0]
         check(bool(torch.equal(x32, xbf)), f"{label}: 20 iterations with bf16 planes give x equal "
                                            f"to f32 planes bit for bit")
     del planes, x32, xbf
-    return worst, keep
+    return worst, worst_wide, keep, keep_wide
 
 
 # ---------------------------------------------------------------------------
@@ -1079,6 +1172,44 @@ def fused_sweep(dev, grid: int, iters: int):
     return out
 
 
+def wide_band_path(dev, n: int, iters: int):
+    """Phase 9: ``cg_dia_fused_onepass`` (run_fused's one-pass entry) on the
+    7-point 3-D Laplacian at n^3, f32, whose +-n^2 diagonals put its window
+    past a block's shared memory, so its iterations run the wide kernel.
+    rho must fall and stay finite, and the true residual (f64) must lie
+    within 10x of the two-pass fused CG's (``cg_dia_fused``) on the same b
+    after the same iterations. Returns the measurements."""
+    import torch
+    from sparse_tpu_torch.kernels import cg_dia as C
+
+    print(f"phase 9: one-pass CG on the 3-D Laplacian at {n}^3 (a band past the window), {iters} "
+          f"iterations, float32", flush=True)
+    planes, offs = laplacian_3d_dia(n, dev)
+    N = n**3
+    gen = torch.Generator(device=dev).manual_seed(11)
+    b = torch.randn((N,), device=dev, generator=gen)
+    rho0 = float(torch.dot(b, b))
+    C.cg_dia_fused_onepass(planes, offs, b, None, N, iters=2)  # first launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, _r, rho = C.cg_dia_fused_onepass(planes, offs, b, None, N, iters=iters)
+    rho_f = float(rho)
+    secs = time.perf_counter() - t0
+    rel = dia_residual(planes, offs, x, b)
+    x2 = C.cg_dia_fused(planes, offs, b, None, N, iters=iters)[0]
+    rel2 = dia_residual(planes, offs, x2, b)
+    print(f"  {iters} iterations in {secs:.4f} s ({iters / secs:.2f} iters/s); rho {rho_f:.6g} "
+          f"(from {rho0:.6g}); true ||b - A x|| / ||b|| = {rel:.4g} (two-pass {rel2:.4g}, f64)",
+          flush=True)
+    check(np.isfinite(rho_f) and rho_f < rho0 and np.isfinite(rel) and tuple(x.shape) == (N,),
+          f"{n}^3: finite rho below rho0 and x of shape ({N},)")
+    check(rel <= 10 * max(rel2, float(np.finfo(np.float32).eps)),
+          f"{n}^3: the one-pass true residual {rel:.4g} within 10x of the two-pass {rel2:.4g}")
+    del planes, b, x, x2, _r
+    return dict(n=n, iters=iters, s=secs, iters_per_s=iters / secs, rho=rho_f, rel_residual=rel,
+                twopass_rel_residual=rel2)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
@@ -1280,6 +1411,51 @@ def segment_sweep(dev, A, bc, segs=(32, 64, 128, 256, 512, 1024)):
     return out
 
 
+def window_sweep(dev, bw, sizes2=(500, 1000, 1500, 2000, 3000, 4500),
+                 sizes3=(32, 48, 64, 80, 96, 112, 128, 144, 160)):
+    """``--window-sweep``: one one-pass iteration through the windowed and
+    the wide kernel, CUDA events over 20 launches of the running recurrence
+    from a random b, on the 5-point Laplacian at n^2 for ``sizes2`` and the
+    7-point one at n^3 for ``sizes3``, f32 and f64 (the windowed kernel
+    where its window fits a block's shared memory). Printed with the
+    window's span, the rows a block owns, their ratio and the byte bound:
+    the experiment behind ``cgcg_iteration``'s windowed-or-wide choice."""
+    import torch
+    from sparse_tpu_torch.kernels import cg_dia as C
+    from sparse_tpu_torch.kernels import dia_spmv as D
+    from sparse_tpu_torch.models import laplacian_2d_dia
+
+    sync = torch.cuda.synchronize
+    out = []
+    shapes = [(2, n) for n in sizes2] + [(3, n) for n in sizes3]
+    for dt in (torch.float32, torch.float64):
+        for dim, n in shapes:
+            planes, offs = (laplacian_2d_dia(n, dtype=dt, device=dev) if dim == 2 else
+                            laplacian_3d_dia(n, dev, dtype=dt))
+            N = n**dim
+            plan = D.dia_plan(offs, (N, N))
+            packed = D.dia_pack(planes, plan)
+            del planes
+            b = torch.randn((N,), dtype=dt, device=dev)
+            ws = C.CgWorkspace(plan, dt, dev)
+            geo = ws.window(dt)[0]
+            isz = torch.finfo(dt).bits // 8
+            e = dict(dtype=str(dt).split(".")[1], shape=f"{n}^{dim}", span=geo.span,
+                     fits=geo.fits, bound_ms=onepass_bytes(plan, isz, isz) / bw * 1e3)
+            step = lambda k: cuda_ms(onepass_stepper(k, packed, packed, b, plan, ws), 20, sync)  # noqa: E731
+            e["wide_ms"] = step(C.cgcg_kernel_wide)
+            if geo.fits:
+                rows = -(-geo.ntiles // geo.nblocks) * geo.tile
+                e.update(blocks=geo.nblocks, rows_per_block=rows, ratio=rows / geo.span,
+                         window_ms=step(C.cgcg_kernel))
+            out.append(e)
+            print("  window sweep: " + ", ".join(
+                f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in e.items()),
+                flush=True)
+            del packed, b, ws
+    return out
+
+
 def product_kernels(label, fn, kernel: str, most: int, reps: int = 3):
     """The CUDA kernels ``reps`` calls of ``fn`` launch, by torch.profiler:
     the kernel named ``kernel`` once a call and at most ``most`` kernels a
@@ -1306,19 +1482,26 @@ def product_kernels(label, fn, kernel: str, most: int, reps: int = 3):
           f"call at most")
 
 
-def slice3_timings(dev, grid: int, cgcg_state, bw, flops):
+def onepass_bytes(plan, vec_bytes: int, plane_bytes: int) -> int:
+    """Bytes one one-pass iteration must move: r, w, s read over their
+    padded length (halo windows included), p, x and the D planes read, and
+    r', w', s', p, x written."""
+    mp, L = plan.m_pad, plan.m_pad + 2 * plan.B
+    return plane_bytes * plan.D * mp + vec_bytes * (3 * L + 2 * mp + 5 * mp)
+
+
+def slice3_timings(dev, grid: int, cgcg_state, wide_state, bw, flops):
     """Times of the column-indexed DIA SpMV at phase 7's shapes (the grid^2
     Laplacian's scipy planes [5, N], x [N]) against
     ``torch.sparse_csr_tensor @ x`` of the same matrix, and of one one-pass
-    CG iteration at phase 8's shapes (library: none, no single PyTorch call
-    computes a CG iteration). The one-pass launches, kernel and plain,
-    run phase 2e's recurrence from its b (r, w and s swapped after each),
-    so each timed launch is an iteration of the checked solve. Bytes: the
-    D planes, x and y once for the SpMV; for the one-pass iteration r, w,
-    s read over their padded length (halo windows included), p, x and the
-    D planes read, and r', w', s', p, x written. The bf16-plane variants
-    of the one-pass kernel and of kernel A are timed beside them
-    (printed)."""
+    CG iteration (library: none, no single PyTorch call computes a CG
+    iteration): the windowed kernel at phase 8's shapes, the wide kernel at
+    phase 9's (the 3-D Laplacian). The one-pass launches, kernel and plain,
+    run phase 2e's recurrence from its b (r, w and s swapped after each), so
+    each timed launch is an iteration of the checked solve. Beside them
+    (printed): the windowed kernel with bf16 planes and in f64, and the
+    wide kernel at the same shapes (the kernel the windowed one replaced
+    there); kernel A with bf16 planes."""
     import torch
     import sparse_tpu_torch as sparse
     from sparse_tpu_torch.kernels import cg_dia as C
@@ -1344,33 +1527,77 @@ def slice3_timings(dev, grid: int, cgcg_state, bw, flops):
           f"max |y| = {float((y_lib - y_k).abs().max() / y_k.abs().max()):.3g}", flush=True)
     del A, csr, y_lib, y_k, planes, x
 
+    def onepass_ms(kernel, stream, packed, b, plan, ws=None):
+        return cuda_ms(onepass_stepper(kernel, stream, packed, b, plan, ws), reps, sync)
+
     plan, packed, b, ws = cgcg_state
-    mp, L = plan.m_pad, plan.m_pad + 2 * plan.B
     t["cgcg_kernel"] = dict(
-        ms=cuda_ms(onepass_stepper(C.cgcg_kernel, packed, packed, b, plan, ws), reps, sync),
-        plain_ms=cuda_ms(onepass_stepper(C.cgcg_kernel_plain, packed, packed, b, plan), reps,
-                         sync),
-        bytes=4 * (plan.D * mp + 3 * L + 2 * mp + 5 * mp), ops=(6 * plan.D + 12) * mp,
-        library_ms=None,
+        ms=onepass_ms(C.cgcg_kernel, packed, packed, b, plan, ws),
+        plain_ms=onepass_ms(C.cgcg_kernel_plain, packed, packed, b, plan),
+        bytes=onepass_bytes(plan, 4, 4), ops=(6 * plan.D + 12) * plan.m_pad, library_ms=None,
     )
+    geo = ws.window(packed.dtype)[0]
     bf = packed.to(torch.bfloat16)
-    ms_bf = cuda_ms(onepass_stepper(C.cgcg_kernel, bf, packed, b, plan, ws), reps, sync)
-    bound_bf = (2 * plan.D * mp + 4 * (3 * L + 2 * mp + 5 * mp)) / bw * 1e3
+    packed64, b64 = packed.double(), b.double()
+    ws64 = C.CgWorkspace(plan, torch.float64, dev)
+    extra = dict(prefill_bytes=3 * 4 * geo.span * geo.nblocks, blocks=geo.nblocks,
+                 shared_bytes=geo.shared_bytes)
+    for label, stream, pk, bb, w_, vb, pb in (("f32", packed, packed, b, ws, 4, 4),
+                                              ("bf16", bf, packed, b, ws, 4, 2),
+                                              ("f64", packed64, packed64, b64, ws64, 8, 8)):
+        g = w_.window(stream.dtype)[0]
+        e = extra[label] = dict(bound_ms=onepass_bytes(plan, vb, pb) / bw * 1e3,
+                                schedule=g.schedule, blocks=g.nblocks)
+        e["window"] = onepass_ms(C.cgcg_kernel, stream, pk, bb, plan, w_)
+        e["wide"] = onepass_ms(C.cgcg_kernel_wide, stream, pk, bb, plan, w_)
     # kernel A with bf16 planes at the two-pass state of cg_dia_fused from b
     rp = C._pad_vec(b, plan)
     pc, pn, q = torch.zeros_like(rp), torch.zeros_like(rp), torch.zeros_like(rp)
     scc = torch.zeros((4,), dtype=b.dtype, device=b.device)
     scc[C.RHO] = torch.dot(rp, rp)
-    ms_a = cuda_ms(lambda: C.cg_kernel_a(bf, rp, pc, pn, q, scc, plan, ws), reps, sync)
-    bound_a = (2 * plan.D * mp + 4 * (2 * L + 2 * mp)) / bw * 1e3
-    print(f"  bf16 planes: cgcg_kernel {ms_bf:.4f} ms (bound {bound_bf:.4f} ms), cg_kernel_a "
-          f"{ms_a:.4f} ms (bound {bound_a:.4f} ms)", flush=True)
-    t["cgcg_kernel"]["bf16"] = dict(cgcg_ms=ms_bf, cgcg_bound_ms=bound_bf, cg_kernel_a_ms=ms_a,
-                                    cg_kernel_a_bound_ms=bound_a)
+    extra["bf16"]["cg_kernel_a_ms"] = cuda_ms(lambda: C.cg_kernel_a(bf, rp, pc, pn, q, scc, plan, ws),
+                                              reps, sync)
+    extra["bf16"]["cg_kernel_a_bound_ms"] = (2 * plan.D * plan.m_pad + 4 * (
+        2 * (plan.m_pad + 2 * plan.B) + 2 * plan.m_pad)) / bw * 1e3
+    del bf, rp, pc, pn, q, packed64, b64, ws64
+    # the card's rate for a stream of the same bytes in the same 2:1 read/write
+    # mix (torch.add of two vectors into a third): what a kernel of this mix
+    # can reach; the windowed kernel also reads its prefill
+    n = onepass_bytes(plan, 4, 4) // 12
+    a_, b_ = torch.rand(n, device=dev), torch.rand(n, device=dev)
+    c_ = torch.empty_like(a_)
+    extra["stream_2to1_ms"] = cuda_ms(lambda: torch.add(a_, b_, out=c_), reps, sync)
+    del a_, b_, c_
+    plan3, packed3, b3, ws3 = wide_state
+    t["cgcg_kernel_wide"] = dict(
+        ms=onepass_ms(C.cgcg_kernel_wide, packed3, packed3, b3, plan3, ws3),
+        plain_ms=onepass_ms(C.cgcg_kernel_plain, packed3, packed3, b3, plan3),
+        bytes=onepass_bytes(plan3, 4, 4), ops=(6 * plan3.D + 12) * plan3.m_pad, library_ms=None,
+    )
     for name, r in t.items():
         byte_ms, op_ms = r["bytes"] / bw * 1e3, r["ops"] / flops * 1e3
         r["bound_ms"] = max(byte_ms, op_ms)
         r["bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
+    k = t["cgcg_kernel"]
+    print(f"  one-pass at {grid}^2: {geo.nblocks} blocks, {geo.shared_bytes} B of shared memory, "
+          f"prefill {extra['prefill_bytes']} B an iteration; the windowed and the wide kernel "
+          f"(ms):", flush=True)
+    for label in ("f32", "bf16", "f64"):
+        e = extra[label]
+        print(f"    {label} planes: windowed ({e['schedule']!r}, {e['blocks']} blocks) "
+              f"{e['window']:.4f}, wide {e['wide']:.4f}; bound {e['bound_ms']:.4f}", flush=True)
+    moved = onepass_bytes(plan, 4, 4) + extra["prefill_bytes"]
+    print(f"  the windowed kernel moves {moved} B an iteration (the function's and the prefill): "
+          f"{moved / k['ms'] / 1e9:.4f} TB/s; a 2:1 read/write stream of the function's bytes "
+          f"(torch.add) takes {extra['stream_2to1_ms']:.4f} ms, "
+          f"{12 * n / extra['stream_2to1_ms'] / 1e9:.4f} TB/s", flush=True)
+    e = extra["bf16"]
+    print(f"  cg_kernel_a with bf16 planes {e['cg_kernel_a_ms']:.4f} ms (bound "
+          f"{e['cg_kernel_a_bound_ms']:.4f} ms)", flush=True)
+    w = t["cgcg_kernel_wide"]
+    print(f"  wide kernel at phase 9's {plan3.m}-row 3-D Laplacian: {w['ms']:.4f} ms (bound "
+          f"{w['bound_ms']:.4f} ms)", flush=True)
+    k["onepass"] = extra
     return t
 
 
@@ -1400,7 +1627,8 @@ def device_share(label, fn):
 
 
 def run(dev: str = "cuda", grid: int = 6000, small_grid: int = 1000, skew_m: int = 2**21,
-        batch_m: int = 2**16, lanes: int = 64, entry_grid: int = 64, iters: int = 300) -> dict:
+        batch_m: int = 2**16, lanes: int = 64, entry_grid: int = 64, iters: int = 300,
+        wide_n: int = 200, wide_iters: int = 100) -> dict:
     import torch
     import sparse_tpu_torch as sparse
     from sparse_tpu_torch.kernels import _build
@@ -1435,19 +1663,21 @@ def run(dev: str = "cuda", grid: int = 6000, small_grid: int = 1000, skew_m: int
           flush=True)
     errs = check_sell_kernels(dev, skew_s, lanes_s, lanes)
     err_direct = check_dia_direct(dev, grid)
-    err_cgcg, cgcg_state = check_cgcg_kernel(dev, grid)
+    err_cgcg, err_wide, cgcg_state, wide_state = check_cgcg_kernel(dev, grid, wide_n)
     errs.update({"dia_spmv_packed": err_spmv, "cg_kernel_a": err_a, "cg_kernel_b": err_b,
-                 "dia_spmv_direct": err_direct, "cgcg_kernel": err_cgcg})
+                 "dia_spmv_direct": err_direct, "cgcg_kernel": err_cgcg,
+                 "cgcg_kernel_wide": err_wide})
 
     # each path runs with every launch counter at 0 and is read just after
     counters = (D.dia_spmv_packed, C.cg_kernel_a, C.cg_kernel_b, S.sell_chunk_spmv,
-                S.sell_chunk_spmv_batched, D.dia_spmv_direct, C.cgcg_kernel)
+                S.sell_chunk_spmv_batched, D.dia_spmv_direct, C.cgcg_kernel, C.cgcg_kernel_wide)
     launches = {}
 
-    def drive(path, kernels, fn, *args, also=()):
+    def drive(path, kernels, fn, *args, also=(), absent=(), exact=None):
         """Run ``fn(*args)`` with the counters at 0; each of ``kernels`` must
         launch and its count is the one reported; each of ``also`` must
-        launch (its count is reported from another path)."""
+        launch (its count is reported from another path); each of
+        ``absent`` must not; ``exact`` gives counts that must be met."""
         for c in counters:
             c.launches = 0
         res = fn(*args)
@@ -1455,6 +1685,10 @@ def run(dev: str = "cuda", grid: int = 6000, small_grid: int = 1000, skew_m: int
         print(f"  launches on the {path}: {seen}", flush=True)
         for k in (*kernels, *also):
             check(seen[k] > 0, f"{k} launched on the {path} ({seen[k]} times)")
+        for k in absent:
+            check(seen[k] == 0, f"{k} did not launch on the {path}")
+        for k, n in (exact or {}).items():
+            check(seen[k] == n, f"{k} launched {n} times on the {path}")
         launches.update({k: seen[k] for k in kernels})
         return res
 
@@ -1465,15 +1699,21 @@ def run(dev: str = "cuda", grid: int = 6000, small_grid: int = 1000, skew_m: int
     bc, _X, out_b = drive("batched path", ("sell_chunk_spmv_batched",), batched_path, dev, lanes_s,
                           lanes)
     out_f = drive("flagship step", ("dia_spmv_direct",), flagship_path, dev, grid, entry_grid, iters)
+    # two one-pass variants, each solved once to warm and three times timed
     out_s = drive("fused sweep", ("cgcg_kernel",), fused_sweep, dev, grid, iters,
-                  also=("cg_kernel_a", "cg_kernel_b", "dia_spmv_packed"))
+                  also=("cg_kernel_a", "cg_kernel_b", "dia_spmv_packed"),
+                  absent=("cgcg_kernel_wide",), exact={"cgcg_kernel": 2 * 4 * iters})
+    # one warm-up solve of 2 iterations, then wide_iters
+    out_w = drive("wide-band path", ("cgcg_kernel_wide",), wide_band_path, dev, wide_n, wide_iters,
+                  absent=("cgcg_kernel",), exact={"cgcg_kernel_wide": 2 + wide_iters})
     rel_f, rel_2 = out_f[f"{grid}^2"]["rel_residual"], out_s["twopass"]["rel_residual"]
     check(rel_f <= 10 * max(rel_2, float(np.finfo(np.float32).eps)),
           f"flagship step's true residual at {grid}^2 ({rel_f:.4g}) within 10x of the two-pass "
           f"fused CG's on the same b ({rel_2:.4g})")
     return dict(card=card, name=name, grid=grid, A=A, out=out, out_gen=out_gen, out_b=out_b, A_gen=A_gen,
                 prep=prep, bc=bc, launches=launches, errs=errs, cg_state=cg_state,
-                cgcg_state=cgcg_state, out_f=out_f, out_s=out_s)
+                cgcg_state=cgcg_state, wide_state=wide_state, out_f=out_f, out_s=out_s,
+                out_w=out_w)
 
 
 _SOURCES = {
@@ -1485,6 +1725,7 @@ _SOURCES = {
                                 "sparse_tpu/kernels/sell_spmv.py:293"),
     "dia_spmv_direct": ("sparse_tpu_torch/csrc/dia_spmv.cu", "sparse_tpu/kernels/dia_spmv.py:639"),
     "cgcg_kernel": ("sparse_tpu_torch/csrc/cg_dia.cu", "sparse_tpu/kernels/cg_dia.py:374"),
+    "cgcg_kernel_wide": ("sparse_tpu_torch/csrc/cg_dia.cu", "sparse_tpu/kernels/cg_dia.py:374"),
 }
 
 
@@ -1512,8 +1753,10 @@ def main() -> int:
     t.update(sell_timings("cuda", res["A_gen"], res["prep"], res["bc"], bw, flops))
     sweep = (segment_sweep("cuda", res["A_gen"], res["bc"]) if "--segment-sweep" in sys.argv[1:]
              else None)
+    if "--window-sweep" in sys.argv[1:]:
+        res["out_w"]["window_sweep"] = window_sweep("cuda", bw)
     grid = res["grid"]
-    t.update(slice3_timings("cuda", grid, res.pop("cgcg_state"), bw, flops))
+    t.update(slice3_timings("cuda", grid, res.pop("cgcg_state"), res.pop("wide_state"), bw, flops))
     from sparse_tpu_torch import linalg
     from sparse_tpu_torch.batch import batched_cg
     from sparse_tpu_torch.models import cg_dia, poisson_cg_state_dia
@@ -1576,7 +1819,8 @@ def main() -> int:
         g["segment_sweep"], bo["segment_sweep"] = sweep["single"], sweep["batched"]
     print(json.dumps({"main_path": o, "general_path": g, "batched_path": bo,
                       "flagship_step": res["out_f"], "fused_sweep": sw,
-                      "bf16_planes": t["cgcg_kernel"].pop("bf16")}), flush=True)
+                      "wide_band_path": res["out_w"], "onepass": t["cgcg_kernel"].pop("onepass")}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(res["card"], flush=True)
     print(json.dumps({"ok": True, "device": {

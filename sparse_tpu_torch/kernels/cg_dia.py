@@ -10,19 +10,28 @@ the Pallas ``_kernel_a``, ``_kernel_b`` and ``_kernel_cgcg``:
     its last block sets pq and alpha;
   * kernel B: x += alpha*p, r -= alpha*q, and <r, r>, from which its last
     block sets rho_prev and rho;
-  * the one-pass (Chronopoulos-Gear) kernel: alpha and beta from the
-    device scalars, s = w + beta*s and r -= alpha*s at every row it reads,
-    w = A r, p = r + beta*p, x += alpha*p, and both <r, r> and <w, r>, from
-    which its last block sets the scalars of the next iteration.
+  * the one-pass (Chronopoulos-Gear) iteration: alpha and beta from the
+    device scalars, s = w + beta*s, r -= alpha*s, w = A r, p = r + beta*p,
+    x += alpha*p, and both <r, r> and <w, r>, from which its last block
+    sets the scalars of the next iteration. Two kernels compute it:
+    ``cgcg_kernel``, the windowed one, where each block of a persistent
+    grid walks its own contiguous range of rows and slides a ring of r
+    values in shared memory over it, so r, w and s are loaded once a row
+    (its geometry is :class:`CgcgWindow`, a plain function of the plan and
+    the card's numbers); and ``cgcg_kernel_wide``, the grid-stride kernel
+    that recomputes s and r at every row it reads, for bands whose window
+    does not fit a block's shared memory or is long against the rows a
+    block owns. :func:`cgcg_iteration` picks one from the plan.
 
-Vectors live padded at [m_pad + 2B] (the plan of ``kernels/dia_spmv.py``)
-with zero halos. The scalars stay on the device in ``sc``; a chunk of
-iterations makes no host sync. Unlike the JAX functions, these update the
-state they are given in place: x and r in kernel B, p by ping-pong with a
-second buffer; in the one-pass kernel x and p in place (each row is read
-and written by its own thread only) and r, w and s by ping-pong (other
-blocks read their old values at halo rows during the launch). The returned
-x and r are views of the state's buffers.
+Vectors live padded at [m_pad + 2B] (the plan of ``kernels/dia_spmv.py``;
+B a multiple of 4) with zero halos. The scalars stay on the device in
+``sc``; a chunk of iterations makes no host sync. Unlike the JAX
+functions, these update the state they are given in place: x and r in
+kernel B, p by ping-pong with a second buffer; in the one-pass kernels x
+and p in place (each row is read and written by the one thread that owns
+it) and r, w and s by ping-pong (other blocks read their old values at
+halo rows during the launch). The returned x and r are views of the
+state's buffers.
 
 ``plane_dtype=torch.bfloat16`` streams the planes in bf16 (widened to f32
 at the load; the multiply and add stay in f32), for callers whose values
@@ -44,27 +53,52 @@ from .dia_spmv import DiaPlan, dia_pack, dia_pad_x, dia_plan, dia_spmv_packed
 
 _THREADS = 256  # csrc/cg_dia.cu kThreads
 _MAX_BLOCKS = 1024  # fixed grid cap: partial counts depend only on m_pad
+#: rows a thread of the windowed one-pass kernel takes at once (one 16-byte
+#: group) and rows a tile step (csrc/cg_dia.cu kRows, kTile)
+WINDOW_ROWS = 4
+WINDOW_TILE = _THREADS * WINDOW_ROWS
+#: the windowed kernel's tile-step schedule by vector itemsize (csrc/cg_dia.cu
+#: kSchedule, the faster on an H100, PERF.md): "async" (f32) copies the
+#: entering rows of the tile after next with cp.async into a staging area
+#: of five tiles in shared memory; "ahead" (f64) loads the next tile's into
+#: registers while the current tile computes
+WINDOW_SCHEDULE = {4: "async", 8: "ahead"}
+#: tiles of shared memory beside the span by itemsize: a ring of two, and
+#: the "async" staging area
+_WINDOW_TILES = {4: 2 + 5, 8: 2}
+#: the least ratio of a block's rows to the window's span at which the
+#: one-pass iteration takes the windowed kernel: below it each block's
+#: prefill of a span of rows outweighs the loads it saves (chip_smoke.py
+#: --window-sweep on an H100: at ratios of 1.54 and more the windowed
+#: kernel took 0.69-0.86 of the wide kernel's time, at 1.02 and less
+#: 0.97-1.53 of it, in f32 and f64 alike, bar one case; PERF.md)
+WINDOW_MIN_RATIO = 1.5
 
 _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIG_A = [_PTR] * 8 + [_I64, _I64, ctypes.POINTER(_I64), _I32, _I32, _PTR]
 _SIG_B = [_PTR] * 7 + [_I64, _I64, _I32, _PTR]
-_SIG_CGCG = [_PTR] * 12 + [_I64, _I64, ctypes.POINTER(_I64), _I32, _I32, _PTR]
-_SIGNATURES = {
-    "stk_cg_kernel_a_f32": _SIG_A, "stk_cg_kernel_a_f32_bf16": _SIG_A,
-    "stk_cg_kernel_b_f32": _SIG_B,
-    "stk_cgcg_f32": _SIG_CGCG, "stk_cgcg_f32_bf16": _SIG_CGCG, "stk_cgcg_f64": _SIG_CGCG,
-}
+_SIG_WIDE = [_PTR] * 12 + [_I64, _I64, ctypes.POINTER(_I64), _I32, _I32, _PTR]
+_SIG_WINDOW = [_PTR] * 12 + [_I64, _I64, ctypes.POINTER(_I64), _I32, _I32, _I32, _I32, _PTR]
+_SIG_LIMITS = [_I64, ctypes.POINTER(_I32)]
 #: the two-pass kernels are built for f32 vectors only, the dtype of the
 #: reference's fused-CG gate (linalg._try_fused_cg)
 CG_KERNEL_DTYPES = (torch.float32,)
-#: the one-pass kernel is built for f32 and f64 vectors
+#: the one-pass kernels are built for f32 and f64 vectors
 CGCG_KERNEL_DTYPES = (torch.float32, torch.float64)
 # entry points by (vector dtype, plane dtype)
 _F32, _F64, _BF16 = torch.float32, torch.float64, torch.bfloat16
 _ENTRIES_A = {(_F32, _F32): "stk_cg_kernel_a_f32", (_F32, _BF16): "stk_cg_kernel_a_f32_bf16"}
 _ENTRIES_B = {(_F32, None): "stk_cg_kernel_b_f32"}
-_ENTRIES_CGCG = {(_F32, _F32): "stk_cgcg_f32", (_F32, _BF16): "stk_cgcg_f32_bf16",
-                 (_F64, _F64): "stk_cgcg_f64"}
+_CGCG_SUFFIX = {(_F32, _F32): "f32", (_F32, _BF16): "f32_bf16", (_F64, _F64): "f64"}
+_ENTRIES_WIDE = {k: f"stk_cgcg_wide_{v}" for k, v in _CGCG_SUFFIX.items()}
+_ENTRIES_WINDOW = {k: f"stk_cgcg_window_{v}" for k, v in _CGCG_SUFFIX.items()}
+_SIGNATURES = {
+    "stk_cg_kernel_a_f32": _SIG_A, "stk_cg_kernel_a_f32_bf16": _SIG_A,
+    "stk_cg_kernel_b_f32": _SIG_B,
+    **{name: _SIG_WIDE for name in _ENTRIES_WIDE.values()},
+    **{name: _SIG_WINDOW for name in _ENTRIES_WINDOW.values()},
+    **{f"stk_cgcg_window_limits_{v}": _SIG_LIMITS for v in _CGCG_SUFFIX.values()},
+}
 
 # scalar slots of sc; two-pass: [rho_prev, rho, pq, alpha],
 # one-pass: [rho_prev, rho, mu, alpha_prev]
@@ -72,17 +106,113 @@ RHO_PREV, RHO, PQ, ALPHA = 0, 1, 2, 3
 MU, ALPHA_PREV = 2, 3
 
 
-class CgWorkspace:
-    """Per-block dot partials (two per block: the one-pass kernel reduces
-    two dots) and the last-block ticket. The kernels of one solve run in
-    order on one stream, so they share one set."""
+def window_extent(offsets) -> tuple[int, int]:
+    """(lo, hi) of the windowed kernel: min(0, min o_k) and max(0, max o_k),
+    rounded out to a multiple of ``WINDOW_ROWS``, so the window holds the
+    row itself and every row it reads."""
+    up = lambda v: -(-v // WINDOW_ROWS) * WINDOW_ROWS  # noqa: E731
+    return -up(max(0, -min(offsets, default=0))), up(max(0, max(offsets, default=0)))
 
-    __slots__ = ("nblocks", "partials", "ticket")
+
+def window_shared_bytes(span: int, itemsize: int, tile: int = WINDOW_TILE) -> int:
+    """Dynamic shared memory of the windowed kernel: a ring of ``span`` rows
+    plus two tiles of r' values, and for "async" a staging area of five
+    tiles beside it."""
+    return (span + _WINDOW_TILES[itemsize] * tile) * itemsize
+
+
+class CgcgWindow:
+    """Launch geometry of the windowed one-pass kernel, from the plan, the
+    vectors' itemsize and three numbers of the card.
+
+    ``lo``/``hi``: :func:`window_extent`; ``span = hi - lo``; ``ring`` =
+    span + 2 tiles; ``schedule``: ``WINDOW_SCHEDULE`` of the itemsize;
+    ``shared_bytes``: :func:`window_shared_bytes`, and ``fits`` says whether
+    it fits one block's (else only the wide kernel takes the band). Block b
+    owns rows ``block_range(b)``: whole tiles, split as evenly as the tile
+    count allows over ``nblocks`` = min(tiles, SMs x resident blocks an
+    SM). ``windowed``: the one-pass iteration takes the windowed kernel,
+    where it fits and a block owns at least ``WINDOW_MIN_RATIO`` spans of
+    rows (``rows_per_block``). Nothing here depends on a timing, so a
+    repeated solve on one card is bit-identical."""
+
+    __slots__ = ("m_pad", "tile", "lo", "hi", "span", "ring", "schedule", "shared_bytes",
+                 "smem_per_block", "fits", "ntiles", "nblocks")
+
+    def __init__(self, plan: DiaPlan, itemsize: int, sm_count: int, blocks_per_sm: int,
+                 smem_per_block: int, tile: int = WINDOW_TILE):
+        self.m_pad, self.tile = plan.m_pad, tile
+        self.lo, self.hi = window_extent(plan.offsets)
+        self.span = self.hi - self.lo
+        self.ring = self.span + 2 * tile
+        self.schedule = WINDOW_SCHEDULE[itemsize]
+        self.shared_bytes = window_shared_bytes(self.span, itemsize, tile)
+        self.smem_per_block = smem_per_block
+        self.fits = self.shared_bytes <= smem_per_block
+        self.ntiles = -(-plan.m_pad // tile)
+        self.nblocks = max(1, min(self.ntiles, sm_count * blocks_per_sm)) if self.fits else 0
+
+    def block_range(self, b: int) -> tuple[int, int]:
+        """Rows [R0, R1) of block b (csrc/cg_dia.cu, cgcg_window_kernel)."""
+        t0, t1 = b * self.ntiles // self.nblocks, (b + 1) * self.ntiles // self.nblocks
+        return t0 * self.tile, min(t1 * self.tile, self.m_pad)
+
+    @property
+    def rows_per_block(self) -> int:
+        """Rows the longest range holds (0 where the window does not fit)."""
+        return -(-self.ntiles // self.nblocks) * self.tile if self.fits else 0
+
+    @property
+    def windowed(self) -> bool:
+        return self.fits and self.rows_per_block >= WINDOW_MIN_RATIO * self.span
+
+    @property
+    def terms_per_thread(self) -> int:
+        """Terms a thread of the kernel sums in sequence into each dot."""
+        return -(-self.ntiles // self.nblocks) * self.tile // _THREADS
+
+
+class CgWorkspace:
+    """Per-block dot partials (two per block: the one-pass kernels reduce
+    two dots) and the last-block ticket. The kernels of one solve run in
+    order on one stream, so they share the ticket. The two-pass kernels and
+    the wide one-pass kernel take the fixed grid of ``nblocks``; the
+    windowed kernel takes its own grid (:meth:`window`), with its own
+    partials."""
+
+    __slots__ = ("plan", "nblocks", "partials", "ticket", "_windows")
 
     def __init__(self, plan: DiaPlan, dtype, device):
+        self.plan = plan
         self.nblocks = max(min(-(-plan.m_pad // _THREADS), _MAX_BLOCKS), 1)
         self.partials = torch.empty((2 * self.nblocks,), dtype=dtype, device=device)
         self.ticket = torch.zeros((1,), dtype=torch.int32, device=device)
+        self._windows = {}
+
+    def window(self, plane_dtype):
+        """(:class:`CgcgWindow`, partials) of the windowed kernel on this
+        workspace's card for ``plane_dtype`` planes, asked of the card once
+        (which also lets the kernel take the window's shared memory). The
+        geometry is the one of planes at the vectors' dtype for every plane
+        dtype, so bf16 and f32 planes run one grid and sum the dots in one
+        order."""
+        if plane_dtype not in self._windows:
+            dt, itemsize = self.partials.dtype, self.partials.element_size()
+            lib = _build.library("cg_dia", _SIGNATURES)
+            limits = getattr(lib, f"stk_cgcg_window_limits_{_CGCG_SUFFIX[(dt, plane_dtype)]}")
+            lo, hi = window_extent(self.plan.offsets)
+            out = (_I32 * 3)()
+            code = limits(window_shared_bytes(hi - lo, itemsize), out)
+            _build.check_launch(lib, code, "cgcg_kernel (limits)")
+            if plane_dtype != dt:
+                self._windows[plane_dtype] = self.window(dt)
+            else:
+                geo = CgcgWindow(self.plan, itemsize, sm_count=out[0], blocks_per_sm=out[2],
+                                 smem_per_block=out[1])
+                parts = torch.empty((2 * max(geo.nblocks, 1),), dtype=dt,
+                                    device=self.partials.device)
+                self._windows[plane_dtype] = (geo, parts)
+        return self._windows[plane_dtype]
 
 
 def _scalar_guard_div(num, den):
@@ -120,19 +250,24 @@ def cg_kernel_b_plain(x, r, p, q, sc, plan: DiaPlan):
     sc[RHO] = rr
 
 
-def cgcg_kernel_plain(planes, r, w, s, p, x, r_out, w_out, s_out, sc, plan: DiaPlan):
-    """Plain torch version of the one-pass kernel (same elementwise
-    operations, in the same order; the dots are torch's). beta and alpha
-    carry the reference's zero guards (``cg_dia.py:435-441``): beta = 0
-    where rho_prev = 0, beta / alpha_prev = 0 where alpha_prev = 0, alpha =
-    0 where its denominator is 0."""
-    m_pad, B = plan.m_pad, plan.B
+def cgcg_scalars(sc):
+    """(alpha, beta) of a one-pass iteration from sc, with the reference's
+    zero guards (``cg_dia.py:435-441``): beta = 0 where rho_prev = 0,
+    beta / alpha_prev = 0 where alpha_prev = 0, alpha = 0 where its
+    denominator is 0."""
     rho_prev, rho, mu, alpha_prev = sc[RHO_PREV], sc[RHO], sc[MU], sc[ALPHA_PREV]
     zero = torch.zeros_like(rho)
     beta = torch.where(rho_prev == 0, zero, _scalar_guard_div(rho, rho_prev))
     ratio = torch.where(alpha_prev == 0, zero, _scalar_guard_div(beta, alpha_prev))
     denom = mu - ratio * rho
-    alpha = torch.where(denom == 0, zero, _scalar_guard_div(rho, denom))
+    return torch.where(denom == 0, zero, _scalar_guard_div(rho, denom)), beta
+
+
+def cgcg_kernel_plain(planes, r, w, s, p, x, r_out, w_out, s_out, sc, plan: DiaPlan):
+    """Plain torch version of the one-pass kernels (same elementwise
+    operations, in the same order; the dots are torch's)."""
+    m_pad, B = plan.m_pad, plan.B
+    alpha, beta = cgcg_scalars(sc)
     s_new = w + beta * s  # halos: 0 + beta * 0, as the kernel reads them
     r_new = r - alpha * s_new
     acc = torch.zeros((m_pad,), dtype=r.dtype, device=r.device)
@@ -210,27 +345,86 @@ def cg_kernel_b(x, r, p, q, sc, plan: DiaPlan, ws: CgWorkspace):
 cg_kernel_b.launches = 0
 
 
+def _cgcg_pointers(planes, r, w, s, p, x, r_out, w_out, s_out, partials, ws, sc):
+    return (planes.data_ptr(), r.data_ptr(), w.data_ptr(), s.data_ptr(), p.data_ptr(),
+            x.data_ptr(), r_out.data_ptr(), w_out.data_ptr(), s_out.data_ptr(),
+            partials.data_ptr(), ws.ticket.data_ptr(), sc.data_ptr())
+
+
 def cgcg_kernel(planes, r, w, s, p, x, r_out, w_out, s_out, sc, plan: DiaPlan,
                 ws: CgWorkspace):
-    """One one-pass CG iteration: reads r, w, s; writes r_out, w_out, s_out
-    (interior rows); updates p and x in place; sets all four slots of sc."""
+    """One one-pass CG iteration through the windowed kernel: reads r, w, s;
+    writes r_out, w_out, s_out (interior rows); updates p and x in place;
+    sets all four slots of sc. On the card the plan's window must fit a
+    block's shared memory (``ws.window(planes.dtype)[0].fits``; else
+    :func:`cgcg_kernel_wide` takes the band, and :func:`cgcg_iteration`
+    chooses)."""
     if r.device.type == "cpu" and planes.device.type == "cpu":
         return cgcg_kernel_plain(planes, r, w, s, p, x, r_out, w_out, s_out, sc, plan)
+    _window_or_wide(None, planes, r, w, s, p, x, r_out, w_out, s_out, sc, plan, ws)
+
+
+cgcg_kernel.launches = 0
+
+
+def _window_or_wide(wide, planes, r, w, s, p, x, r_out, w_out, s_out, sc, plan, ws):
+    """The windowed launch on CUDA tensors. With ``wide`` None, wherever
+    the plan's window fits a block's shared memory (else a ValueError);
+    otherwise where the geometry chooses it (``CgcgWindow.windowed``), else
+    ``wide(...)``."""
     name = "cgcg_kernel"
-    entry = _entry(name, _ENTRIES_CGCG, plan, planes, r, w, s, p, x, r_out, w_out, s_out, sc)
+    entry = _entry(name, _ENTRIES_WINDOW, plan, planes, r, w, s, p, x, r_out, w_out, s_out, sc)
+    geo, partials = ws.window(planes.dtype)
+    if wide is not None and not geo.windowed:
+        return wide(planes, r, w, s, p, x, r_out, w_out, s_out, sc, plan, ws)
+    if not geo.fits:
+        raise ValueError(
+            f"{name}: the window's ring ({geo.shared_bytes} bytes) exceeds a block's shared memory "
+            f"({geo.smem_per_block} bytes); cgcg_kernel_wide takes this band"
+        )
+    if any(t.data_ptr() % 16 for t in (planes, r, w, s, p, x, r_out, w_out, s_out)):
+        raise ValueError(f"{name}: the 16-byte row groups need 16-byte aligned operands")
     lib = _build.library("cg_dia", _SIGNATURES)
     code = getattr(lib, entry)(
-        planes.data_ptr(), r.data_ptr(), w.data_ptr(), s.data_ptr(), p.data_ptr(),
-        x.data_ptr(), r_out.data_ptr(), w_out.data_ptr(), s_out.data_ptr(),
-        ws.partials.data_ptr(), ws.ticket.data_ptr(), sc.data_ptr(),
-        plan.m_pad, plan.B, _build.offsets_array(plan.offsets), plan.D, ws.nblocks,
-        _build.stream_handle(r),
+        *_cgcg_pointers(planes, r, w, s, p, x, r_out, w_out, s_out, partials, ws, sc),
+        plan.m_pad, plan.B, _build.offsets_array(plan.offsets), plan.D, geo.lo, geo.span,
+        geo.nblocks, _build.stream_handle(r),
     )
     _build.check_launch(lib, code, name)
     cgcg_kernel.launches += 1
 
 
-cgcg_kernel.launches = 0
+def cgcg_kernel_wide(planes, r, w, s, p, x, r_out, w_out, s_out, sc, plan: DiaPlan,
+                     ws: CgWorkspace):
+    """The same iteration through the grid-stride kernel, which reads r, w
+    and s at every row it needs through the cache and takes any band: the
+    one-pass kernel for bands whose window does not fit."""
+    if r.device.type == "cpu" and planes.device.type == "cpu":
+        return cgcg_kernel_plain(planes, r, w, s, p, x, r_out, w_out, s_out, sc, plan)
+    name = "cgcg_kernel_wide"
+    entry = _entry(name, _ENTRIES_WIDE, plan, planes, r, w, s, p, x, r_out, w_out, s_out, sc)
+    lib = _build.library("cg_dia", _SIGNATURES)
+    code = getattr(lib, entry)(
+        *_cgcg_pointers(planes, r, w, s, p, x, r_out, w_out, s_out, ws.partials, ws, sc),
+        plan.m_pad, plan.B, _build.offsets_array(plan.offsets), plan.D, ws.nblocks,
+        _build.stream_handle(r),
+    )
+    _build.check_launch(lib, code, name)
+    cgcg_kernel_wide.launches += 1
+
+
+cgcg_kernel_wide.launches = 0
+
+
+def cgcg_iteration(planes, r, w, s, p, x, r_out, w_out, s_out, sc, plan: DiaPlan,
+                   ws: CgWorkspace):
+    """One one-pass iteration: the plain version on CPU tensors; on the card
+    the windowed kernel where the plan's window fits a block's shared
+    memory and a block owns at least ``WINDOW_MIN_RATIO`` spans of rows
+    (``CgcgWindow.windowed``), else the wide kernel."""
+    if r.device.type == "cpu" and planes.device.type == "cpu":
+        return cgcg_kernel_plain(planes, r, w, s, p, x, r_out, w_out, s_out, sc, plan)
+    _window_or_wide(cgcg_kernel_wide, planes, r, w, s, p, x, r_out, w_out, s_out, sc, plan, ws)
 
 
 def _pad_vec(v: torch.Tensor, plan: DiaPlan) -> torch.Tensor:
@@ -324,7 +518,7 @@ def cg_dia_fused_onepass(data, offsets: tuple, b, x0, m: int, iters: int = 300,
     reference's zero guards. Initial state: r0 = b - A x0, w0 = A r0,
     rho0 = <r0, r0>, mu0 = <w0, r0>, rho_prev = 0, alpha_prev = 1, p = s =
     0; the setup SpMVs run through ``dia_spmv_packed`` (the kernel on the
-    card). f32 or f64 vectors; ``plane_dtype`` (``None`` or
+    card), each iteration through :func:`cgcg_iteration`. f32 or f64 vectors; ``plane_dtype`` (``None`` or
     ``torch.bfloat16``, f32 only) is the dtype the iterations stream the
     planes at.
 
@@ -345,7 +539,7 @@ def cg_dia_fused_onepass(data, offsets: tuple, b, x0, m: int, iters: int = 300,
     p = torch.zeros_like(r0)
     ws = CgWorkspace(plan, dt, b.device)
     for _ in range(iters):
-        cgcg_kernel(stream, r[0], w[0], s[0], p, xp, r[1], w[1], s[1], sc, plan, ws)
+        cgcg_iteration(stream, r[0], w[0], s[0], p, xp, r[1], w[1], s[1], sc, plan, ws)
         r.reverse()
         w.reverse()
         s.reverse()

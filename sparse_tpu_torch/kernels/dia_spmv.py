@@ -14,7 +14,9 @@ matrix), so the kernel streams exactly D planes with no halo; x is padded
 with B zeros on each side so ``xpad[B + o_k + i]`` is always in bounds.
 The TPU's tile and halo roundings (1024/512, VMEM rules) are not carried
 over: rows pad only to the kernel's block of ``ROWS_PER_BLOCK`` and B is
-the exact band.
+the band rounded up to a multiple of ``HALO_ALIGN`` rows, so that every
+interior row group of the windowed one-pass CG kernel (``csrc/cg_dia.cu``)
+starts on a 16-byte boundary.
 """
 
 from __future__ import annotations
@@ -32,6 +34,9 @@ from . import _build
 ROWS_PER_BLOCK = 256
 #: dtypes the CUDA kernels are built for
 KERNEL_DTYPES = (torch.float32, torch.float64)
+#: B (the halo) is a multiple of this many rows: the 4-row groups of the
+#: windowed one-pass CG kernel's 16-byte loads (csrc/cg_dia.cu kRows)
+HALO_ALIGN = 4
 
 
 class DiaPlan:
@@ -51,7 +56,8 @@ class DiaPlan:
 
 def dia_plan(offsets, shape) -> DiaPlan:
     m, n = int(shape[0]), int(shape[1])
-    B = max((abs(int(o)) for o in offsets), default=0)
+    band = max((abs(int(o)) for o in offsets), default=0)
+    B = -(-band // HALO_ALIGN) * HALO_ALIGN
     TM = ROWS_PER_BLOCK
     G = (m + TM - 1) // TM
     return DiaPlan(offsets, m, n, TM, B, G)

@@ -371,3 +371,125 @@ def test_flagship_step_runs_direct_kernel_without_host_sync():
     xc = cg_dia(step, planes.cpu(), torch.zeros(n * n), b.cpu(), torch.zeros(n * n),
                 torch.zeros(()), iters=50)[0]
     torch.testing.assert_close(x.cpu(), xc, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the windowed and the wide one-pass kernels (csrc/cg_dia.cu)
+# ---------------------------------------------------------------------------
+#: a span of 32,768 rows (the 3-D Laplacian's at 128^3): the window fits a
+#: block's shared memory in f32, not in f64
+F32_ONLY_BAND = (300_000, (-16_384, -1, 0, 1, 16_384))
+ONEPASS_CASES = [(4096, (-64, -1, 0, 1, 64)), (1_000_000, (-1000, -1, 0, 1, 1000)),
+                 (999_999, (1, 2)), (777_777, (-3, -1)), (600_001, (-1030, 7)), F32_ONLY_BAND]
+
+
+def _onepass_launch(kernel, m, offsets, dtype, pdt):
+    """One launch of ``kernel`` and of the plain version from one random
+    state; returns both outputs and the launch count it moved."""
+    rng = np.random.default_rng(m)
+    plan = D.dia_plan(offsets, (m, m))
+    data = torch.tensor(rng.standard_normal((len(offsets), m)), dtype=dtype, device="cuda")
+    packed = D.dia_pack(data, plan)
+    planes = packed if pdt is None else packed.to(pdt)
+    vec = lambda: C._pad_vec(torch.tensor(rng.standard_normal(m), dtype=dtype, device="cuda"),
+                             plan)
+    r, w, s, p, x = vec(), vec(), vec(), vec(), vec()
+    sc = torch.tensor([2.0, 1.5, 0.7, 0.9], dtype=dtype, device="cuda")
+    ws = C.CgWorkspace(plan, dtype, "cuda")
+    outs, moved = [], None
+    for fn in (kernel, C.cgcg_kernel_plain):
+        pk, xk, sck = p.clone(), x.clone(), sc.clone()
+        ro, wo, so = torch.zeros_like(r), torch.zeros_like(r), torch.zeros_like(r)
+        if fn is kernel:
+            before = kernel.launches
+            fn(planes, r, w, s, pk, xk, ro, wo, so, sck, plan, ws)
+            torch.cuda.synchronize()
+            moved = kernel.launches - before
+        else:
+            fn(planes, r, w, s, pk, xk, ro, wo, so, sck, plan)
+        outs.append((pk, xk, ro, wo, so, sck))
+    return outs, moved, plan, ws
+
+
+@pytest.mark.parametrize("dtype,pdt", [(torch.float32, None), (torch.float32, torch.bfloat16),
+                                       (torch.float64, None)])
+@pytest.mark.parametrize("m,offsets", ONEPASS_CASES)
+@pytest.mark.parametrize("which", ["window", "wide"])
+def test_onepass_kernels_equal_plain_bit_for_bit(which, m, offsets, dtype, pdt):
+    """Both kernels over one-sided bands, a band without a main diagonal,
+    ragged m, several tiles a block and a band whose window fits in f32
+    only (the windowed wrapper refuses it in f64): p, x, r', w', s' equal
+    the plain version bit for bit, one launch counted; the dots within (kt
+    + 20) eps of the sum of |terms|, kt the terms a thread sums in
+    sequence."""
+    kernel = C.cgcg_kernel_wide if which == "wide" else C.cgcg_kernel
+    if which == "window" and offsets == F32_ONLY_BAND[1]:
+        ws = C.CgWorkspace(D.dia_plan(offsets, (m, m)), dtype, "cuda")
+        assert ws.window(pdt or dtype)[0].fits == (dtype == torch.float32)
+        if dtype == torch.float64:
+            with pytest.raises(ValueError, match="cgcg_kernel_wide takes this band"):
+                _onepass_launch(kernel, m, offsets, dtype, pdt)
+            return
+    outs, moved, plan, ws = _onepass_launch(kernel, m, offsets, dtype, pdt)
+    assert moved == 1
+    for a, b in zip(outs[0][:5], outs[1][:5]):
+        assert torch.equal(a, b)
+    (_, _, ro, wo, *_), sck, scp = outs[1], outs[0][5], outs[1][5]
+    B, mp = plan.B, plan.m_pad
+    if which == "wide":
+        kt = -(-mp // (ws.nblocks * 256))
+    else:
+        kt = ws.window(pdt or dtype)[0].terms_per_thread
+    eps = torch.finfo(dtype).eps
+    for slot, terms in ((C.RHO, ro[B : B + mp].double() ** 2),
+                        (C.MU, wo[B : B + mp].double() * ro[B : B + mp].double())):
+        exact, mag = float(terms.sum()), float(terms.abs().sum())
+        assert abs(float(sck[slot]) - exact) <= (kt + 20) * eps * mag
+    assert torch.equal(sck[[C.RHO_PREV, C.ALPHA_PREV]], scp[[C.RHO_PREV, C.ALPHA_PREV]])
+
+
+def test_wide_band_onepass_runs_the_wide_kernel_only():
+    """A band whose window exceeds a block's shared memory: the windowed
+    wrapper refuses it, cg_dia_fused_onepass runs the wide kernel (its
+    counter moves by the iteration count, the windowed one's not at all)
+    and tracks the CPU."""
+    m, offs = 200_000, (-40_000, -1, 0, 1, 40_000)
+    diagonals = [np.full(m - abs(o), -1.0 if o else 4.5, np.float32) for o in offs]
+    A = st.diags(diagonals, offs, dtype=np.float32)
+    plan = D.dia_plan(offs, (m, m))
+    ws = C.CgWorkspace(plan, torch.float32, "cuda")
+    assert not ws.window(torch.float32)[0].fits
+    z = torch.zeros(plan.m_pad + 2 * plan.B, device="cuda")
+    with pytest.raises(ValueError, match="cgcg_kernel_wide takes this band"):
+        C.cgcg_kernel(D.dia_pack(A.data, plan), z, z, z, z, z, z, z, z, torch.zeros(4, device="cuda"),
+                      plan, ws)
+    b = torch.rand(m, device="cuda")
+    before = (C.cgcg_kernel.launches, C.cgcg_kernel_wide.launches)
+    x = C.cg_dia_fused_onepass(A.data, offs, b, None, m, iters=40)[0]
+    assert (C.cgcg_kernel.launches, C.cgcg_kernel_wide.launches) == (before[0], before[1] + 40)
+    xc = C.cg_dia_fused_onepass(A.data.cpu(), offs, b.cpu(), None, m, iters=40)[0]
+    torch.testing.assert_close(x.cpu(), xc, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("m,offs,windowed", [
+    (1_000_000, (-1000, -1, 0, 1, 1000), True),  # 3 tiles a block, span 2000
+    (F32_ONLY_BAND[0], F32_ONLY_BAND[1], False),  # fits; 3 tiles a block, span 32,768
+    (262_144, (-4096, -64, -1, 0, 1, 64, 4096), False),  # fits; 1 tile a block, span 8192
+])
+def test_onepass_takes_the_window_by_rows_per_span(m, offs, windowed):
+    """cg_dia_fused_onepass takes the windowed kernel where its window fits
+    and a block owns at least WINDOW_MIN_RATIO spans of rows, else the wide
+    kernel (only one counter moves, by the iteration count), and tracks the
+    CPU either way."""
+    diagonals = [np.full(m - abs(o), -1.0 if o else 2.0 * len(offs), np.float32) for o in offs]
+    A = st.diags(diagonals, offs, dtype=np.float32)
+    ws = C.CgWorkspace(D.dia_plan(offs, (m, m)), torch.float32, "cuda")
+    geo = ws.window(torch.float32)[0]
+    assert geo.fits and geo.windowed == windowed
+    b = torch.rand(m, device="cuda")
+    before = (C.cgcg_kernel.launches, C.cgcg_kernel_wide.launches)
+    x = C.cg_dia_fused_onepass(A.data, offs, b, None, m, iters=40)[0]
+    moved = (C.cgcg_kernel.launches - before[0], C.cgcg_kernel_wide.launches - before[1])
+    assert moved == ((40, 0) if windowed else (0, 40))
+    xc = C.cg_dia_fused_onepass(A.data.cpu(), offs, b.cpu(), None, m, iters=40)[0]
+    torch.testing.assert_close(x.cpu(), xc, rtol=1e-4, atol=1e-4)
