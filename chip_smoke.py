@@ -5,7 +5,7 @@
 
 Needs one CUDA card, ``nvcc`` and the repository checkout beside this file;
 exits non-zero without them, and on any failed check. Phases, in the order
-they run (1, 2a-2e, 3, 5, 6, 7, 8, 9, 4):
+they run (1, 2a-2e, 3, 5, 6, 7, 8, 9, 10, 4):
 
 1. card name and power limit; build the CUDA kernels (csrc/*.cu) and time it;
 2. each kernel against its plain torch version on the card: (a, b) the DIA
@@ -50,6 +50,20 @@ they run (1, 2a-2e, 3, 5, 6, 7, 8, 9, 4):
 9. one-pass CG on the 7-point 3-D Laplacian at 200^3 (offsets +-40000,
    f32), 100 iterations through the wide kernel only, its true residual
    within 10x of the two-pass fused CG's;
+10. the Krylov solvers of linalg: (a) on the 5-point upwind
+   convection-diffusion operator at 6000^2 (f32, nonsymmetric), A @ x and
+   A.T @ x against a host f64 reference and twice bit for bit, then 100
+   iterations each of cgs, bicg, bicgstab, tfqmr, qmr, gmres (5 cycles of
+   20), lsqr and lsmr, with every host sync outside the counted fetches an
+   error; bicg and lsqr repeat bit for bit, bicg's DIA launches count its
+   A and A^T products; (b) on phase 3's Laplacian, 100 minres iterations,
+   spsolve (the fused CG kernels) and minres to tol at 1000^2, lgmres and
+   gcrotmk in f64 at 6000^2, 3 outer cycles each; (c) on the nonsymmetric
+   skewed_nonsym_csr(2**21) under spmv_mode 'sell', A.T @ x against scipy
+   and twice bit for bit (and on skewed_degree_csr(2**16)), bicg, qmr,
+   gmres and bicgstab to 1e-6 ||b|| in f32 (measured) and f64 (held),
+   lsqr and lsmr for 300 iterations (their estimates held to the true
+   residual) and to tol in f64 at 2**13;
 4. times from CUDA events: each kernel, its plain version, its bound, and
    where one exists the PyTorch library call computing the same function;
    for the SELL kernels also the x gather's sectors, the layout's bytes
@@ -60,9 +74,11 @@ they run (1, 2a-2e, 3, 5, 6, 7, 8, 9, 4):
    windowed and the wide one-pass kernel on 2-D and 3-D Laplacians of
    several sizes (the experiment behind ``cgcg_iteration``'s choice).
 
-Each of the six paths (3, 5, 6, 7, 8, 9) runs with every kernel's launch
-counter set to 0 just before it and read just after; each kernel of the
-path must have launched.
+Each of the six paths (3, 5, 6, 7, 8, 9) and each of phase 10's three
+operators runs with every kernel's launch counter set to 0 just before it
+and read just after; each kernel of the path must have launched. The
+kernels line reports each kernel's launches summed over the paths that
+run it.
 
 The last lines are one JSON object listing the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -761,15 +777,7 @@ def main_path(dev, grid: int, small_grid: int):
         np.random.default_rng(7).choice(n, min(4096, n), replace=False), [0, 1, n - 2, n - 1]
     ]))
     y_rows = y[torch.as_tensor(rows, device=dev)].double().cpu().numpy()
-    ref = np.zeros(len(rows))
-    mag = np.zeros(len(rows))
-    for d, o in zip(diagonals, offsets):
-        # row i holds d at column i + o (d is indexed by min(i, i + o))
-        j = rows + o
-        ok = (j >= 0) & (j < n)
-        v = np.where(ok, d[np.clip(np.minimum(rows, j), 0, len(d) - 1)].astype(np.float64), 0.0)
-        ref += v
-        mag += np.abs(v)
+    ref, mag = banded_rows(diagonals, offsets, rows, np.ones(n), transpose=False)
     err = np.abs(y_rows - ref)
     check(bool(np.all(err <= 8 * np.finfo(np.float32).eps * mag)),
           f"A @ ones vs host f64 reference on {len(rows)} sampled rows "
@@ -1211,6 +1219,565 @@ def wide_band_path(dev, n: int, iters: int):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the Krylov solvers of linalg
+# ---------------------------------------------------------------------------
+#: operator products an iteration of each solver makes (tfqmr: a half-step)
+KRYLOV_MATVECS = {"cgs": 2, "bicg": 2, "bicgstab": 2, "tfqmr": 1, "qmr": 2, "gmres": 1,
+                  "lsqr": 2, "lsmr": 2, "minres": 1}
+
+
+def convection_diffusion_diagonals(nx: int, ny: int, gamma: float = 0.5, dtype=np.float32):
+    """The 5-point upwind convection-diffusion operator -Laplace(u) + beta . grad(u)
+    on the unit square with Dirichlet boundaries, scaled by h^2 (Saad,
+    Iterative Methods for Sparse Linear Systems, 2nd ed.): centre 4 + 2
+    gamma, west and south -1 - gamma, east and north -1, cell Peclet number
+    gamma = beta h. Returns the diagonals of its transpose, offsets and n:
+    ``diags(diagonals, offsets).tocsc().T.tocsr()`` (pde.py's build) is
+    the operator itself."""
+    n = nx * ny
+    up1 = np.full(n - 1, -1.0 - gamma, dtype=dtype)  # the transpose's (i, i+1): west of i+1
+    lo1 = np.full(n - 1, -1.0, dtype=dtype)  # the transpose's (i+1, i): east of i
+    up1[nx - 1 :: nx] = 0.0
+    lo1[nx - 1 :: nx] = 0.0
+    return ([np.full(n - nx, -1.0, dtype=dtype), lo1, np.full(n, 4.0 + 2 * gamma, dtype=dtype),
+             up1, np.full(n - nx, -1.0 - gamma, dtype=dtype)], [-nx, -1, 0, 1, nx], n)
+
+
+def banded_rows(diagonals, offsets, rows, x, transpose: bool):
+    """Rows ``rows`` of B x (or B^T x) in f64 for B = diags(diagonals,
+    offsets), and of |B| |x|: B holds d_o[min(i, i + o)] at (i, i + o), so
+    B^T holds d_o[min(i, i - o)] at (i, i - o)."""
+    n = x.shape[0]
+    ref = np.zeros(len(rows))
+    mag = np.zeros(len(rows))
+    for d, o in zip(diagonals, offsets):
+        o = -o if transpose else o
+        j = rows + o
+        ok = (j >= 0) & (j < n)
+        k = np.clip(np.minimum(rows, j), 0, len(d) - 1)
+        v = np.where(ok, d[k].astype(np.float64) * x[np.clip(j, 0, n - 1)].astype(np.float64), 0.0)
+        ref += v
+        mag += np.abs(v)
+    return ref, mag
+
+
+def skewed_nonsym_csr(m: int, seed: int = 7):
+    """skewed_degree_csr's power-law rows without the symmetrizing step:
+    G + diag(|G| row sums + 1), nonsymmetric and diagonally dominant
+    (scipy CSR, f32)."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    deg = np.minimum((rng.pareto(1.2, m) * 4 + 1).astype(int), max(m // 20, 8))
+    rows = np.repeat(np.arange(m), deg)
+    cols = rng.integers(0, m, rows.shape[0])
+    vals = rng.random(rows.shape[0])
+    G = sp.coo_matrix((vals, (rows, cols)), shape=(m, m)).tocsr()
+    A = G + sp.diags(np.asarray(abs(G).sum(axis=1)).ravel() + 1.0)
+    return A.tocsr().astype(np.float32)
+
+
+class fetches_only:
+    """Every host sync an error, except inside the solvers' counted fetches
+    (``linalg._sync_fetch``): the error mode is armed as each fetch returns,
+    so it covers every iteration and restart cycle a loop runs after its
+    first fetch. A no-op off the card."""
+
+    def __init__(self, dev):
+        self.dev = dev
+
+    def __enter__(self):
+        import torch
+        from sparse_tpu_torch import linalg
+
+        self.linalg, self.real = linalg, linalg._sync_fetch
+        if self.dev == "cpu":
+            return self
+        real = self.real
+
+        def fetch(x):
+            torch.cuda.set_sync_debug_mode("default")
+            try:
+                return real(x)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+
+        linalg._sync_fetch = fetch
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        if self.dev != "cpu":
+            torch.cuda.set_sync_debug_mode("default")
+        self.linalg._sync_fetch = self.real
+        return False
+
+
+def timed_solve(dev, fn, counter):
+    """``fn()`` once to warm (layouts, the transposed CSR), then once timed,
+    with the syncs held to the counted fetches (``fetches_only``). Returns
+    (warm output, timed output, seconds, HOST_SYNCS, launches of
+    ``counter`` in the timed run)."""
+    import torch
+    from sparse_tpu_torch import linalg
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    warm = fn()
+    sync()
+    before = counter.launches
+    linalg.HOST_SYNCS = 0
+    with fetches_only(dev):
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        secs = time.perf_counter() - t0
+    return warm, out, secs, linalg.HOST_SYNCS, counter.launches - before
+
+
+def solver_line(name, its, secs, syncs, launches, rel, extra=""):
+    print(f"  {name}: {its} iterations in {secs:.4f} s = {its / secs:.2f} iters/s "
+          f"({secs / max(its, 1) * 1e3:.4f} ms an iteration, {KRYLOV_MATVECS[name]} products an "
+          f"iteration); HOST_SYNCS {syncs}; launches {launches}; true ||b - A x|| / ||b|| = "
+          f"{rel:.6g} (f64, host){extra}", flush=True)
+    return dict(iters=its, s=secs, iters_per_s=its / secs, ms_per_iter=secs / max(its, 1) * 1e3,
+                matvecs=KRYLOV_MATVECS[name], host_syncs=syncs, launches=launches,
+                rel_residual=rel)
+
+
+def krylov_banded(dev, grid: int, iters: int = 100, restart: int = 20):
+    """Phase 10a: the nonsymmetric banded operator at grid^2, f32. A @ x and
+    A.T @ x against a host f64 reference on sampled rows, each twice bit
+    for bit and one dia_spmv_packed launch; then ``iters`` iterations of
+    cgs, bicg, bicgstab, tfqmr, qmr, gmres (restart cycles of ``restart``),
+    lsqr and lsmr, each warmed once and timed once with its syncs held to
+    the counted fetches. bicg and lsqr give x bit for bit on both runs;
+    bicg's count of dia_spmv_packed launches must be 1 + 2 iters (A and A^T
+    products alike); lsqr's r1norm and lsmr's normr must agree with the
+    true residual (f64, host) to 1%."""
+    import torch
+    import sparse_tpu_torch as sparse
+    from sparse_tpu_torch import linalg
+    from sparse_tpu_torch.kernels import dia_spmv as D
+    from sparse_tpu_torch.ops.dia_spmv import dia_spmv_torch
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    print(f"phase 10a: Krylov solvers on the {grid}^2 upwind convection-diffusion operator "
+          f"(float32, nonsymmetric, gamma 0.5), {iters} iterations each", flush=True)
+    diagonals, offsets, n = convection_diffusion_diagonals(grid, grid)
+    t0 = time.perf_counter()
+    A = sparse.diags(diagonals, offsets, shape=(n, n), dtype=np.float32, device=dev).tocsc().T
+    A = A.tocsr()
+    sync()
+    out = {"n": n, "build_s": time.perf_counter() - t0}
+    check(A._maybe_dia() is not None and A.nnz == sum(int((d != 0).sum()) for d in diagonals),
+          f"the operator ({A}) is detected banded")
+    rng = np.random.default_rng(12)
+    x_np = rng.standard_normal(n).astype(np.float32)
+    x = torch.tensor(x_np, device=dev)
+    rows = np.unique(np.concatenate([rng.choice(n, min(4096, n), replace=False),
+                                     [0, 1, grid, n - grid - 1, n - 2, n - 1]]))
+    ridx = torch.as_tensor(rows, device=dev)
+    for label, prod, transpose in (("A @ x", lambda: A @ x, True), ("A.T @ x", lambda: A.T @ x, False)):
+        t0 = time.perf_counter()
+        y1 = prod()  # A.T @ x: the first builds the transpose's CSR and its DIA planes
+        sync()
+        first = time.perf_counter() - t0
+        before = D.dia_spmv_packed.launches
+        y2 = prod()
+        launched = D.dia_spmv_packed.launches - before
+        ref, mag = banded_rows(diagonals, offsets, rows, x_np, transpose)
+        err = np.abs(y1[ridx].double().cpu().numpy() - ref)
+        check(bool(np.all(err <= 8 * np.finfo(np.float32).eps * mag)),
+              f"{label} vs host f64 on {len(rows)} sampled rows (max err {err.max():.3g}, bound "
+              f"8 eps sum |a x|; first call {first:.3f} s)")
+        check(bool(torch.equal(y1, y2)) and (dev == "cpu" or launched == 1),
+              f"{label} twice: bit for bit, one dia_spmv_packed launch ({launched})")
+    check(not bool(torch.equal(A @ x, A.T @ x)), "A.T @ x differs from A @ x (A is nonsymmetric)")
+    del y1, y2
+
+    b_np = rng.standard_normal(n).astype(np.float32)
+    b = torch.tensor(b_np, device=dev)
+    planes, offs = A._maybe_dia()
+    P64 = planes.double().cpu()
+    b64 = torch.tensor(b_np, dtype=torch.float64)
+
+    def true_res(xs):
+        r = b64 - dia_spmv_torch(P64, offs, xs.double().cpu(), (n, n))
+        return float(torch.linalg.vector_norm(r))
+
+    big = 10**9
+    runs = {
+        "cgs": lambda: linalg.cgs(A, b, tol=0.0, maxiter=iters, conv_test_iters=big),
+        "bicg": lambda: linalg.bicg(A, b, tol=0.0, maxiter=iters, conv_test_iters=big),
+        "bicgstab": lambda: linalg.bicgstab(A, b, tol=0.0, maxiter=iters, conv_test_iters=big),
+        "tfqmr": lambda: linalg.tfqmr(A, b, tol=0.0, maxiter=iters),
+        "qmr": lambda: linalg.qmr(A, b, tol=0.0, maxiter=iters, conv_test_iters=big),
+        "gmres": lambda: linalg.gmres(A, b, tol=0.0, restart=restart, maxiter=iters // restart),
+        "lsqr": lambda: linalg.lsqr(A, b, atol=0.0, btol=0.0, conlim=0.0, iter_lim=iters),
+        "lsmr": lambda: linalg.lsmr(A, b, atol=0.0, btol=0.0, conlim=0.0, maxiter=iters),
+    }
+    bnorm = float(np.linalg.norm(b_np.astype(np.float64)))
+    solvers = {}
+    for name, fn in runs.items():
+        warm, res, secs, syncs, launches = timed_solve(dev, fn, D.dia_spmv_packed)
+        xs, its = res[0], res[1] if name not in ("lsqr", "lsmr") else res[2]
+        rabs = true_res(xs)
+        extra = ""
+        if name in ("lsqr", "lsmr"):
+            est = res[3]
+            extra = f"; the solver's estimate {est / bnorm:.6g} (istop {res[1]})"
+        solvers[name] = solver_line(name, its, secs, syncs, launches, rabs / bnorm, extra)
+        # gmres, lsqr and lsmr minimize a residual norm that starts at ||b||
+        monotone = name in ("gmres", "lsqr", "lsmr")
+        check(its == iters and bool(torch.isfinite(xs).all()) and (rabs < bnorm or not monotone),
+              f"{name}: {iters} iterations, finite x" + (", true residual below ||b||"
+                                                        if monotone else ""))
+        if name in ("lsqr", "lsmr"):
+            solvers[name]["estimate"] = est / bnorm
+            check(abs(rabs - est) <= 0.01 * rabs,
+                  f"{name}: its residual estimate {est:.6g} within 1% of the true {rabs:.6g}")
+        if name in ("bicg", "lsqr"):
+            check(bool(torch.equal(warm[0], xs)), f"{name} run twice: x bit for bit")
+        if name == "bicg" and dev != "cpu":
+            check(launches == 1 + 2 * iters,
+                  f"bicg: {launches} dia_spmv_packed launches = 1 + 2 x {iters} (A and A^T products)")
+        del warm, res, xs
+    out["solvers"] = solvers
+    del A, P64, planes
+    return out
+
+
+def krylov_symmetric(dev, A, grid: int, small_grid: int, iters: int = 100, lg_grid=None):
+    """Phase 10b: the symmetric (negative definite) Laplacian of phase 3.
+    minres for ``iters`` iterations at grid^2 f32; spsolve (the fused CG
+    kernels) with a tolerance (1e-4 ||b||, b seeded random) at
+    small_grid^2, whose true residual (f64, host) must lie within tol +
+    sqrt(k) f32 floors; minres to the same tolerance in f32 (measured: its
+    f32 residual estimate parts from the true residual here) and in f64,
+    held to tol + sqrt(k) f64 floors; lgmres (inner_m 30, outer_k 3) and gcrotmk (m 20),
+    3 outer cycles each in f64 at lg_grid^2 (default grid), seconds a
+    cycle and the peak of allocated memory."""
+    import torch
+    import sparse_tpu_torch as sparse
+    from sparse_tpu_torch import linalg
+    from sparse_tpu_torch.kernels import cg_dia as C
+    from sparse_tpu_torch.kernels import dia_spmv as D
+    from sparse_tpu_torch.ops.dia_spmv import dia_spmv_torch
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    lg_grid = grid if lg_grid is None else lg_grid
+    print(f"phase 10b: minres on phase 3's {grid}^2 Laplacian ({iters} iterations), spsolve and "
+          f"minres with a tolerance at {small_grid}^2, lgmres and gcrotmk in f64 at {lg_grid}^2",
+          flush=True)
+    n = A.shape[0]
+    b_np = np.random.default_rng(13).standard_normal(n).astype(np.float32)
+    b = torch.tensor(b_np, device=dev)
+    bnorm = float(np.linalg.norm(b_np.astype(np.float64)))
+    planes, offs = A._maybe_dia()
+    P64 = planes.double().cpu()
+    out = {}
+    _w, res, secs, syncs, launches = timed_solve(
+        dev, lambda: linalg.minres(A, b, tol=0.0, maxiter=iters), D.dia_spmv_packed)
+    r = torch.tensor(b_np, dtype=torch.float64) - dia_spmv_torch(P64, offs, res[0].double().cpu(),
+                                                                 (n, n))
+    rel = float(torch.linalg.vector_norm(r)) / bnorm
+    out["minres"] = solver_line("minres", res[1], secs, syncs, launches, rel)
+    check(res[1] == iters and rel < 1.0, f"minres: {iters} iterations, true residual below ||b||")
+    del _w, res, r, P64
+
+    # tolerance solves at small_grid^2 on a seeded random right-hand side
+    # (phase 3's, two eigenvectors, is solved in two Krylov steps)
+    diag_s, offs_s, ns = laplacian_diagonals(small_grid + 2, small_grid + 2)
+    As = sparse.diags(diag_s, offs_s, shape=(ns, ns), dtype=np.float32, device=dev).tocsc().T.tocsr()
+    bs_np = np.random.default_rng(16).standard_normal(ns).astype(np.float32).astype(np.float64)
+    bs = torch.tensor(bs_np.astype(np.float32), device=dev)
+    bsn = float(np.linalg.norm(bs_np))
+    data_s, offs_ss = As._maybe_dia()
+    data64 = data_s.double().cpu()
+    b64 = torch.tensor(bs_np)
+
+    def rel_floor(xs):
+        x64 = xs.double().cpu()
+        r = b64 - dia_spmv_torch(data64, offs_ss, x64, (ns, ns))
+        mag = dia_spmv_torch(data64.abs(), offs_ss, x64.abs(), (ns, ns))
+        return (float(torch.linalg.vector_norm(r)) / bsn,
+                float(np.finfo(np.float32).eps) * float(torch.linalg.vector_norm(mag)) / bsn)
+
+    before = (C.cg_kernel_a.launches, C.cg_kernel_b.launches)
+    sync()
+    t0 = time.perf_counter()
+    xs = linalg.spsolve(As, bs, tol=1e-4 * bsn, maxiter=20000)
+    sync()
+    secs = time.perf_counter() - t0
+    k = C.cg_kernel_a.launches - before[0]
+    rel, floor = rel_floor(xs)
+    out["spsolve"] = dict(n=ns, iters=k, s=secs, rel_residual=rel, f32_floor=floor)
+    print(f"  spsolve at {small_grid}^2: {k} fused CG iterations in {secs:.4f} s; true residual "
+          f"{rel:.4g} (floor {floor:.3g})", flush=True)
+    check(dev == "cpu" or (k > 0 and C.cg_kernel_b.launches - before[1] == k),
+          f"spsolve ran the fused CG: cg_kernel_a and cg_kernel_b launched {k} times each")
+    check(rel <= 1e-4 + np.sqrt(max(k, 1)) * floor,
+          f"spsolve: true residual {rel:.4g} <= 1e-4 + sqrt({k}) x the f32 floor {floor:.3g}")
+    # minres to tol: in f32 its recurrence estimate of ||r|| parts from the
+    # true residual on this operator (sparse_tpu's f32 minres as well), so
+    # the f32 solve is measured and the tolerance is held in f64
+    As64 = sparse.diags(diag_s, offs_s, shape=(ns, ns), dtype=np.float64,
+                        device=dev).tocsc().T.tocsr()
+    for prec, Am, bm in (("f32", As, bs), ("f64", As64, bs.double())):
+        sync()
+        t0 = time.perf_counter()
+        xm, km = linalg.minres(Am, bm, tol=1e-4, maxiter=20000)
+        sync()
+        secs = time.perf_counter() - t0
+        rel, floor = rel_floor(xm)
+        if prec == "f64":
+            floor *= float(np.finfo(np.float64).eps / np.finfo(np.float32).eps)
+        out["minres_tol_" + prec] = dict(n=ns, iters=km, s=secs, rel_residual=rel, floor=floor)
+        print(f"  minres at {small_grid}^2 ({prec}): {km} iterations in {secs:.4f} s; true residual "
+              f"{rel:.4g} ({prec} floor {floor:.3g})", flush=True)
+        check(km < 20000 and bool(torch.isfinite(xm).all()),
+              f"minres ({prec}) stops on tol 1e-4 ||b|| after {km} iterations, finite x")
+        if prec == "f64":
+            check(rel <= 1e-4 + np.sqrt(km) * floor,
+                  f"minres (f64): true residual {rel:.4g} <= 1e-4 + sqrt({km}) x the f64 floor "
+                  f"{floor:.3g}")
+    del As64
+    del As, xs, xm, data64
+
+    # lgmres and gcrotmk in f64: the largest grid (down from lg_grid) whose
+    # augmented blocks fit the card
+    for g in (lg_grid, lg_grid * 3 // 4, lg_grid // 2):
+        try:
+            out["augmented"] = augmented_f64(dev, g)
+            break
+        except torch.cuda.OutOfMemoryError:
+            print(f"  lgmres/gcrotmk in f64 at {g}^2 do not fit: cut to a smaller grid", flush=True)
+            torch.cuda.empty_cache()
+    else:
+        raise AssertionError("lgmres/gcrotmk in f64 fit at no grid tried")
+    return out
+
+
+def augmented_f64(dev, grid: int):
+    """lgmres (inner_m 30, outer_k 3) and gcrotmk (m 20), 3 outer cycles
+    each on the f64 Laplacian at grid^2: seconds a cycle, the peak of
+    allocated memory, and the true residual, which must fall."""
+    import torch
+    import sparse_tpu_torch as sparse
+    from sparse_tpu_torch import linalg
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    diagonals, offsets, n = laplacian_diagonals(grid + 2, grid + 2, dtype=np.float64)
+    A = sparse.diags(diagonals, offsets, shape=(n, n), dtype=np.float64, device=dev).tocsc().T
+    A = A.tocsr()
+    b = torch.tensor(np.random.default_rng(14).standard_normal(n), device=dev)
+    bnorm = float(torch.linalg.vector_norm(b))
+    out = {"grid": grid}
+    for name, fn in (("lgmres", lambda: linalg.lgmres(A, b, maxiter=3, inner_m=30, outer_k=3)),
+                     ("gcrotmk", lambda: linalg.gcrotmk(A, b, maxiter=3, m=20))):
+        A @ b  # layouts
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        linalg.HOST_SYNCS = 0
+        sync()
+        t0 = time.perf_counter()
+        x, info = fn()
+        sync()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+        rel = float(torch.linalg.vector_norm(b - A @ x)) / bnorm
+        out[name] = dict(cycles=3, s=secs, s_per_cycle=secs / 3, peak_bytes=peak, info=info,
+                         rel_residual=rel, host_syncs=linalg.HOST_SYNCS)
+        print(f"  {name} f64 at {grid}^2: 3 outer cycles in {secs:.4f} s ({secs / 3:.4f} s a cycle), "
+              f"peak allocated {peak / 2**30:.2f} GiB, HOST_SYNCS {linalg.HOST_SYNCS}, info {info}, "
+              f"||b - A x|| / ||b|| = {rel:.6g}", flush=True)
+        check(np.isfinite(rel) and rel < 1.0, f"{name}: 3 cycles lower the residual ({rel:.4g})")
+        del x
+    del A, b
+    return out
+
+
+def scatter_repeats(A, x) -> dict:
+    """How many entries differ between two runs of the scatter-adds the
+    port no longer sums with (a record, not a check): A.T @ x reduced by
+    ``index_add_`` into the columns (the column-split product CSC arrays
+    and adjoint products used before), and the ``index_put_(accumulate=
+    True)`` of the conversions (``ops/conv.py`` dense builds, ``dia.py``
+    plane builds), here a COO with every entry repeated 100 times."""
+    import torch
+    from sparse_tpu_torch.ops.conv import coo_to_dense
+    from sparse_tpu_torch.ops.coords import expand_rows
+
+    rows = expand_rows(A.indptr, A.nnz)
+    prod = A.data * x[rows]
+
+    def col_sum():
+        return torch.zeros_like(x).index_add_(0, A.indices.long(), prod)
+
+    n = 4096
+    g = torch.Generator(device=x.device).manual_seed(3)
+    r = torch.randint(0, 64, (100 * n,), device=x.device, generator=g)
+    c = torch.randint(0, 64, (100 * n,), device=x.device, generator=g)
+    v = torch.randn((100 * n,), device=x.device, generator=g)
+    out = {}
+    for name, fn in (("index_add_ (A.T @ x by columns)", col_sum),
+                     ("index_put_ accumulate (coo_to_dense, 100 duplicates an entry)",
+                      lambda: coo_to_dense(r, c, v, (64, 64)))):
+        y1, y2 = fn(), fn()
+        out[name] = int((y1 != y2).sum())
+        print(f"  two runs of {name}: {out[name]} of {y1.numel()} entries differ", flush=True)
+    return out
+
+
+def krylov_general(dev, m: int, small_m: int, ls_iters: int = 300, ls_m: int = 2**13):
+    """Phase 10c: the nonsymmetric skewed_nonsym_csr(m), f32, under
+    spmv_mode 'sell' (under 'auto' the transpose's tight row profile would
+    take the ELL gathers): A @ x and A.T @ x against scipy in f64 on
+    sampled rows, twice bit for bit, one sell_chunk_spmv launch each;
+    A.T @ x twice bit for bit on skewed_degree_csr(small_m). Then bicg,
+    qmr, gmres and bicgstab to 1e-6 ||b||: in f32 (at most 2000
+    iterations) measured, and in f64, where each must stop on tol with its
+    true residual (f64, host) within tol + sqrt(k) f64 floors; 1e-6 lies at
+    this operator's f32 accuracy, where QMR without look-ahead stalls
+    (sparse_tpu's as well). lsqr and lsmr iterate on the normal equations,
+    whose condition is this operator's squared, so at m they run
+    ``ls_iters`` iterations in f32, their residual estimates held to the
+    true residual within 1%; their tolerance solves run in f64 on
+    skewed_nonsym_csr(ls_m), where they must stop on tol (istop 1) within
+    1% of it."""
+    import torch
+    import sparse_tpu_torch as sparse
+    from sparse_tpu_torch import linalg
+    from sparse_tpu_torch.kernels import sell_spmv as S
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    A_s = skewed_nonsym_csr(m)
+    At_s = A_s.T.tocsr()
+    host_s = time.perf_counter() - t0
+    print(f"phase 10c: Krylov solvers on skewed_nonsym_csr({m}) (float32, nnz {A_s.nnz}, built on "
+          f"the host with its transpose in {host_s:.2f} s), spmv_mode 'sell'", flush=True)
+    prev = sparse.settings.spmv_mode
+    sparse.settings.spmv_mode = "sell"
+    out = {"m": m, "nnz": int(A_s.nnz), "host_build_s": host_s}
+    try:
+        A = sparse.csr_array(A_s, device=dev)
+        rng = np.random.default_rng(15)
+        x_np = rng.standard_normal(m).astype(np.float32)
+        x = torch.tensor(x_np, device=dev)
+        rows = np.unique(np.concatenate([rng.choice(m, min(4096, m), replace=False), [0, m - 1]]))
+        for label, prod, M_s in (("A @ x", lambda: A @ x, A_s), ("A.T @ x", lambda: A.T @ x, At_s)):
+            y1 = prod()
+            before = S.sell_chunk_spmv.launches
+            y2 = prod()
+            launched = S.sell_chunk_spmv.launches - before
+            sub = M_s[rows].astype(np.float64)
+            want = sub @ x_np.astype(np.float64)
+            mag = abs(sub) @ np.abs(x_np).astype(np.float64)
+            err = np.abs(y1[torch.as_tensor(rows, device=dev)].double().cpu().numpy() - want)
+            rl = np.diff(M_s.indptr)[rows]
+            check(bool(np.all(err <= (rl + 2) * np.finfo(np.float32).eps * mag)),
+                  f"{label} vs scipy in f64 on {len(rows)} sampled rows (max err {err.max():.3g}, "
+                  f"bound (row length + 2) eps sum |a x|)")
+            check(bool(torch.equal(y1, y2)) and (dev == "cpu" or launched == 1),
+                  f"{label} twice: bit for bit, one sell_chunk_spmv launch ({launched})")
+        del y1, y2
+        Sm = sparse.csr_array(skewed_degree_csr(small_m), device=dev)
+        xm = torch.tensor(rng.standard_normal(small_m).astype(np.float32), device=dev)
+        check(bool(torch.equal(Sm.T @ xm, Sm.T @ xm)),
+              f"A.T @ x twice bit for bit on skewed_degree_csr({small_m})")
+        out["scatter_repeats"] = scatter_repeats(Sm, xm)
+        del Sm, xm
+
+        A64 = A_s.astype(np.float64)
+        b_np = rng.standard_normal(m).astype(np.float32)
+        b = torch.tensor(b_np, device=dev)
+        bn = float(np.linalg.norm(b_np.astype(np.float64)))
+        tol = 1e-6
+
+        def runs(Ad, bd, cap):
+            """The tolerance solves (and lsqr, lsmr for ls_iters) on Ad, bd."""
+            return {
+                "bicg": lambda: linalg.bicg(Ad, bd, tol=tol * bn, maxiter=cap),
+                "qmr": lambda: linalg.qmr(Ad, bd, tol=tol, maxiter=cap),
+                "gmres": lambda: linalg.gmres(Ad, bd, tol=tol, restart=20, maxiter=cap // 20),
+                "bicgstab": lambda: linalg.bicgstab(Ad, bd, tol=tol * bn, maxiter=cap),
+                "lsqr": lambda: linalg.lsqr(Ad, bd, atol=0.0, btol=0.0, conlim=0.0,
+                                            iter_lim=ls_iters),
+                "lsmr": lambda: linalg.lsmr(Ad, bd, atol=0.0, btol=0.0, conlim=0.0,
+                                            maxiter=ls_iters),
+            }
+
+        solvers = {}
+        A_d = sparse.csr_array(A64, device=dev)
+        for prec, Ad, bd, cap in (("f32", A, b, 2000), ("f64", A_d, b.double(), 20000)):
+            for name, fn in runs(Ad, bd, cap).items():
+                if prec == "f64" and name in ("lsqr", "lsmr"):
+                    continue
+                sync()
+                linalg.HOST_SYNCS = 0
+                before = S.sell_chunk_spmv.launches
+                t0 = time.perf_counter()
+                res = fn()
+                sync()
+                secs = time.perf_counter() - t0
+                xs, its = res[0], res[1] if name not in ("lsqr", "lsmr") else res[2]
+                rel, floor = f64_residual(A64, xs.cpu().numpy(), b_np)
+                if prec == "f64":
+                    floor *= float(np.finfo(np.float64).eps / np.finfo(np.float32).eps)
+                key = name if prec == "f32" else name + "_f64"
+                solvers[key] = solver_line(name, its, secs, linalg.HOST_SYNCS,
+                                           S.sell_chunk_spmv.launches - before, rel,
+                                           f"; {prec}, floor {floor:.3g}")
+                solvers[key].update(floor=floor, dtype=prec)
+                check(bool(torch.isfinite(xs).all()), f"{name} ({prec}): finite x")
+                if name in ("lsqr", "lsmr"):
+                    est = res[3] / bn
+                    solvers[key]["estimate"] = est
+                    check(its == ls_iters and abs(rel - est) <= 0.01 * rel and rel < 1.0,
+                          f"{name}: {ls_iters} iterations, its residual estimate {est:.6g} within "
+                          f"1% of the true {rel:.6g}, below ||b||")
+                elif prec == "f32":
+                    # 1e-6 lies at this operator's f32 accuracy: the f32 solves
+                    # are measured, the tolerance is held in f64 below
+                    solvers[key]["reached_tol"] = bool(rel <= tol + np.sqrt(max(its, 1)) * floor)
+                else:
+                    check(its < cap and rel <= tol + np.sqrt(max(its, 1)) * floor,
+                          f"{name} in f64 stops on tol after {its} iterations: true residual "
+                          f"{rel:.4g} <= 1e-6 + sqrt({its}) x the f64 floor {floor:.3g}")
+                del res, xs
+        del A_d
+        # lsqr and lsmr to the tolerance, in f64, where their normal
+        # equations converge in a few thousand iterations
+        S13 = skewed_nonsym_csr(ls_m).astype(np.float64)
+        A13 = sparse.csr_array(S13, device=dev)
+        b13_np = rng.standard_normal(ls_m)
+        b13 = torch.tensor(b13_np, device=dev)
+        for name, fn in (("lsqr", lambda: linalg.lsqr(A13, b13, atol=0.0, btol=tol, iter_lim=10000)),
+                         ("lsmr", lambda: linalg.lsmr(A13, b13, atol=0.0, btol=tol, maxiter=10000))):
+            sync()
+            t0 = time.perf_counter()
+            res = fn()
+            sync()
+            secs = time.perf_counter() - t0
+            rel = float(np.linalg.norm(b13_np - S13 @ res[0].cpu().numpy()) / np.linalg.norm(b13_np))
+            solvers[name + "_tol_f64"] = dict(m=ls_m, iters=res[2], s=secs, istop=res[1],
+                                              rel_residual=rel)
+            print(f"  {name} in f64 on skewed_nonsym_csr({ls_m}): {res[2]} iterations in {secs:.4f} s, "
+                  f"istop {res[1]}, true ||b - A x|| / ||b|| = {rel:.4g}", flush=True)
+            check(res[1] == 1 and rel <= 1.01 * tol,
+                  f"{name} in f64 stops on tol (istop 1), true residual {rel:.4g} <= 1.01 x 1e-6")
+            del res
+        del A13
+        out["solvers"] = solvers
+        del A, b
+    finally:
+        sparse.settings.spmv_mode = prev
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 def timings(dev, A, cg_state, bw, flops):
@@ -1628,7 +2195,8 @@ def device_share(label, fn):
 
 def run(dev: str = "cuda", grid: int = 6000, small_grid: int = 1000, skew_m: int = 2**21,
         batch_m: int = 2**16, lanes: int = 64, entry_grid: int = 64, iters: int = 300,
-        wide_n: int = 200, wide_iters: int = 100) -> dict:
+        wide_n: int = 200, wide_iters: int = 100, krylov_iters: int = 100,
+        lg_grid: int | None = None) -> dict:
     import torch
     import sparse_tpu_torch as sparse
     from sparse_tpu_torch.kernels import _build
@@ -1675,7 +2243,8 @@ def run(dev: str = "cuda", grid: int = 6000, small_grid: int = 1000, skew_m: int
 
     def drive(path, kernels, fn, *args, also=(), absent=(), exact=None):
         """Run ``fn(*args)`` with the counters at 0; each of ``kernels`` must
-        launch and its count is the one reported; each of ``also`` must
+        launch and its count is added to the one reported (phase 10's
+        operators add theirs to the earlier paths'); each of ``also`` must
         launch (its count is reported from another path); each of
         ``absent`` must not; ``exact`` gives counts that must be met."""
         for c in counters:
@@ -1689,7 +2258,8 @@ def run(dev: str = "cuda", grid: int = 6000, small_grid: int = 1000, skew_m: int
             check(seen[k] == 0, f"{k} did not launch on the {path}")
         for k, n in (exact or {}).items():
             check(seen[k] == n, f"{k} launched {n} times on the {path}")
-        launches.update({k: seen[k] for k in kernels})
+        for k in kernels:
+            launches[k] = launches.get(k, 0) + seen[k]
         return res
 
     A, out = drive("main path", ("dia_spmv_packed", "cg_kernel_a", "cg_kernel_b"),
@@ -1706,6 +2276,13 @@ def run(dev: str = "cuda", grid: int = 6000, small_grid: int = 1000, skew_m: int
     # one warm-up solve of 2 iterations, then wide_iters
     out_w = drive("wide-band path", ("cgcg_kernel_wide",), wide_band_path, dev, wide_n, wide_iters,
                   absent=("cgcg_kernel",), exact={"cgcg_kernel_wide": 2 + wide_iters})
+    out_k = {"banded": drive("Krylov solvers, banded nonsymmetric", ("dia_spmv_packed",),
+                             krylov_banded, dev, grid, krylov_iters)}
+    out_k["symmetric"] = drive("Krylov solvers, symmetric Laplacian",
+                               ("dia_spmv_packed", "cg_kernel_a", "cg_kernel_b"), krylov_symmetric,
+                               dev, A, grid, small_grid, krylov_iters, lg_grid)
+    out_k["general"] = drive("Krylov solvers, general nonsymmetric", ("sell_chunk_spmv",),
+                             krylov_general, dev, skew_m, batch_m)
     rel_f, rel_2 = out_f[f"{grid}^2"]["rel_residual"], out_s["twopass"]["rel_residual"]
     check(rel_f <= 10 * max(rel_2, float(np.finfo(np.float32).eps)),
           f"flagship step's true residual at {grid}^2 ({rel_f:.4g}) within 10x of the two-pass "
@@ -1713,7 +2290,7 @@ def run(dev: str = "cuda", grid: int = 6000, small_grid: int = 1000, skew_m: int
     return dict(card=card, name=name, grid=grid, A=A, out=out, out_gen=out_gen, out_b=out_b, A_gen=A_gen,
                 prep=prep, bc=bc, launches=launches, errs=errs, cg_state=cg_state,
                 cgcg_state=cgcg_state, wide_state=wide_state, out_f=out_f, out_s=out_s,
-                out_w=out_w)
+                out_w=out_w, out_k=out_k)
 
 
 _SOURCES = {
@@ -1812,6 +2389,21 @@ def main() -> int:
           flush=True)
     print(f"  run_fused at {grid}^2 (best of 3): " + ", ".join(
         f"{k} {v['iters_per_s']:.2f} iters/s" for k, v in sw.items()) + f" on {res['card']}", flush=True)
+    spmv_ms = t["dia_spmv_packed"]["ms"]
+    print(f"  Krylov solvers at {grid}^2 (f32, {res['card']}): time an iteration against "
+          f"dia_spmv_packed's {spmv_ms:.4f} ms x the products an iteration", flush=True)
+    ok = res["out_k"]
+    for name, r in [*ok["banded"]["solvers"].items(), ("minres", ok["symmetric"]["minres"])]:
+        r["spmv_ms"] = r["matvecs"] * spmv_ms
+        print(f"    {name}: {r['iters_per_s']:.2f} iters/s, {r['ms_per_iter']:.4f} ms an iteration vs "
+              f"{r['matvecs']} x {spmv_ms:.4f} = {r['spmv_ms']:.4f} ms of products "
+              f"({r['ms_per_iter'] / r['spmv_ms']:.2f}x)", flush=True)
+    Al = res["A"]  # phase 3's Laplacian: where the solvers' iteration time goes
+    bl = torch.randn((Al.shape[0],), device="cuda")
+    ok["busy_share"] = {name: device_share(f"20 {name} iterations at {grid}^2", fn) for name, fn in (
+        ("gmres", lambda: linalg.gmres(Al, bl, tol=0.0, restart=20, maxiter=1)),
+        ("qmr", lambda: linalg.qmr(Al, bl, tol=0.0, maxiter=20, conv_test_iters=10**9)),
+        ("lsqr", lambda: linalg.lsqr(Al, bl, atol=0.0, btol=0.0, conlim=0.0, iter_lim=20)))}
     g["a_at_x_ms"] = t["sell_chunk_spmv"].pop("a_at_x_ms")
     g["gather"] = t["sell_chunk_spmv"].pop("gather")
     bo["gather"] = t["sell_chunk_spmv_batched"].pop("gather")
@@ -1819,7 +2411,8 @@ def main() -> int:
         g["segment_sweep"], bo["segment_sweep"] = sweep["single"], sweep["batched"]
     print(json.dumps({"main_path": o, "general_path": g, "batched_path": bo,
                       "flagship_step": res["out_f"], "fused_sweep": sw,
-                      "wide_band_path": res["out_w"], "onepass": t["cgcg_kernel"].pop("onepass")}),
+                      "wide_band_path": res["out_w"], "onepass": t["cgcg_kernel"].pop("onepass"),
+                      "krylov": res["out_k"]}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(res["card"], flush=True)

@@ -1,12 +1,19 @@
 """CSC sparse array (``sparse_tpu/csc.py``): the CSR encoding of the
-transpose, so transposition is a zero-copy reinterpretation."""
+transpose, so transposition is a zero-copy reinterpretation.
+
+Products run on the array's CSR form, built once and plan-cached on the
+CSC object: they then take CSR's row-wise paths (DIA, SELL, ELL, segment)
+and their kernels, which sum each row in a fixed order. The reference's
+column-split product (scatter-add by row) would add with atomics on the
+card, in an order that changes from run to run."""
 
 from __future__ import annotations
 
 import torch
 
+from . import plan_cache
 from .base import SparseArray
-from .ops import conv, spmv as spmv_ops
+from .ops import conv
 from .ops.coords import expand_rows
 from .utils import as_tensor, host_int, resolve_device
 
@@ -68,15 +75,10 @@ class csc_array(SparseArray):
         return csc_array.from_parts(data, self.indices, self.indptr, self.shape)
 
     def dot(self, other):
-        """A @ x: column-split SpMV (scatter-add by row); others via CSR."""
+        """A @ x through the plan-cached CSR form (row-wise, fixed order)."""
         if isinstance(other, SparseArray):
             return self.tocsr().dot(other)
-        x = as_tensor(other, self.device)
-        if x.ndim == 1:
-            if x.shape[0] != self.shape[1]:
-                raise ValueError(f"dimension mismatch: {self.shape} @ {tuple(x.shape)}")
-            return spmv_ops.csc_spmv(self.indptr, self.indices, self.data, x, self.shape[0])
-        return self.tocsr().dot(x)
+        return plan_cache.get(self, "csr", self.tocsr).dot(other)
 
     def tocsc(self):
         return self

@@ -247,14 +247,16 @@ class csr_array(SparseArray):
         return conv.csr_to_dense(self.indptr, self.indices, self.data, self.shape)
 
     def transpose(self, axes=None):
-        """Zero-copy transpose: the same buffers read as CSC (like scipy)."""
+        """Zero-copy transpose: the same buffers read as CSC (like scipy).
+        The view is plan-cached on this array, so ``A.T @ x`` reuses the
+        CSR form the view builds for its products."""
         if axes is not None:
             raise ValueError("transpose with axes != None is unsupported")
         from .csc import csc_array
 
-        return csc_array.from_parts(
+        return plan_cache.get(self, "transpose", lambda: csc_array.from_parts(
             self.data, self.indices, self.indptr, (self.shape[1], self.shape[0])
-        )
+        ))
 
     @property
     def T(self):

@@ -1,5 +1,5 @@
-"""LinearOperator framework and conjugate gradients (``sparse_tpu/linalg.py``
-``:66-372`` and ``:461-732``).
+"""LinearOperator framework, conjugate gradients and the Krylov solvers
+(``sparse_tpu/linalg.py`` ``:54-372`` and ``:461-2234``).
 
 ``cg`` keeps the reference's three paths and their stopping rule (absolute
 ``||r|| < tol`` tested every ``conv_test_iters`` iterations and at
@@ -12,6 +12,18 @@
 * every other solve takes ``_cg_device_loop``: a torch loop whose scalars
   stay on the device, read by the host only at the test points;
 * a ``callback`` selects ``_cg_host_loop``.
+
+``spsolve`` is ``cg``. ``cgs``, ``bicg`` and ``bicgstab`` keep
+``_cg_device_loop``'s shape. ``gmres`` runs each restart cycle on the
+device and fetches one packed triple a cycle. ``minres``, ``tfqmr``,
+``qmr``, ``lsqr`` and ``lsmr`` run the reference's ``lax.while_loop`` as
+:func:`_device_while`: chunks of masked iterations, one fetch of the stop
+flag a chunk. ``lgmres`` and ``gcrotmk`` drive augmented cycles from the
+host, their small least squares solved on the host from a device QR.
+Every host fetch of these drivers goes through :func:`_sync_fetch`, which
+counts it in ``HOST_SYNCS``. Adjoint products (``rmatvec``) run on a CSR
+of the transpose held by the operator, so they repeat bit for bit on the
+card.
 
 ``batched_cg``/``batched_bicgstab``/``batched_gmres`` solve B systems over
 one sparsity pattern (``sparse_tpu_torch.batch.krylov``), and
@@ -26,9 +38,18 @@ import math
 import numpy as np
 import torch
 
+from . import plan_cache
 from .base import SparseArray
 from .config import settings
 from .utils import as_tensor, resolve_device
+
+
+class MatrixRankWarning(UserWarning):
+    """scipy.sparse.linalg.MatrixRankWarning alias."""
+
+
+def use_solver(**kwargs):
+    """scipy API no-op: there is no UMFPACK toggle here."""
 
 
 # ---------------------------------------------------------------------------
@@ -219,19 +240,40 @@ class _SparseMatrixLinearOperator(LinearOperator):
         super().__init__(A.shape, dtype=A.dtype)
         self.A = A
         self.device = A.device
+        self._AT = None
         # warm the layouts (banded detection, ELL) once, at wrap time
         prepare = getattr(A, "prepare", None)
         if prepare is not None:
             prepare()
 
+    def _transpose(self):
+        """A^T in a row-wise format, built on the first adjoint product and
+        held for the operator's life, plan cache or not: a CSR array (the
+        CSC view's plan-cached CSR form), or a DIA array for a DIA operand.
+        Its products take the row-wise DIA, SELL, ELL or segment paths,
+        which sum each row in a fixed order, so an adjoint product repeats
+        bit for bit on the card."""
+        if self._AT is None:
+            AT = self.A.T
+            if AT.format == "csc":
+                AT = plan_cache.get(AT, "csr", AT.tocsr)
+            elif AT.format != "dia":
+                AT = AT.tocsr()
+            prepare = getattr(AT, "prepare", None)
+            if prepare is not None:
+                prepare()
+            self._AT = AT
+        return self._AT
+
     def matvec(self, x):
         return self.A.dot(x)
 
     def rmatvec(self, x):
-        # the adjoint: conjugate x rather than the matrix (A.T is zero-copy)
+        # the adjoint: conjugate x rather than the matrix
         if self.dtype.is_complex:
-            return torch.conj(self.A.T.dot(torch.conj(x)))
-        return self.A.T.dot(x)
+            AT = self._transpose()
+            return torch.conj_physical(AT.dot(torch.conj_physical(as_tensor(x, self.device))))
+        return self._transpose().dot(x)
 
     def matmat(self, X):
         return self.A.dot(X)
@@ -292,11 +334,39 @@ def _vdot(a, b):
     return torch.sum(prod, dim=-1, dtype=_DOT_ACC.get(prod.dtype, prod.dtype)).to(prod.dtype)
 
 
-def _operator_device(A) -> torch.device:
+def _operator_device(A, b=None) -> torch.device:
+    """The device a solve runs on: that of ``A`` (a tensor, sparse array or
+    operator that has one), else of ``b`` when it is a tensor, else
+    ``settings.device``."""
     if isinstance(A, (SparseArray, torch.Tensor)):
         return A.device
     dev = getattr(A, "device", None)
+    if dev is None and isinstance(b, torch.Tensor):
+        return b.device
     return dev if dev is not None else resolve_device()
+
+
+_REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
+
+
+def _real_dtype(dt: torch.dtype) -> torch.dtype:
+    return _REAL.get(dt, dt)
+
+
+def _nz(t):
+    """``t`` with exact zeros replaced by 1: the reference's 0/0 guards."""
+    return torch.where(t == 0, torch.ones_like(t), t)
+
+
+def _tested(iters: int, maxiter: int, conv_test_iters: int) -> bool:
+    """The reference's test points: every ``conv_test_iters`` iterations
+    and at ``maxiter - 1``."""
+    return iters % conv_test_iters == 0 or iters == maxiter - 1
+
+
+def _converged(r, tol2) -> bool:
+    """||r||^2 < tol2, read on the host (one counted fetch)."""
+    return bool(_sync_fetch(_vdot(r, r).real < tol2))
 
 
 # ---------------------------------------------------------------------------
@@ -310,7 +380,7 @@ def cg(A, b, x0=None, tol=1e-08, maxiter=None, M=None, callback=None, atol=None,
     ``settings.device``."""
     if atol is not None:
         raise ValueError("atol is not supported.")
-    b = as_tensor(b, _operator_device(A))
+    b = as_tensor(b, _operator_device(A, b))
     n = b.shape[0]
     if maxiter is None:
         maxiter = n * 10
@@ -384,7 +454,7 @@ def _try_fused_cg(A, b, x0, tol, maxiter, conv_test_iters):
             planes=packed,
         )
         iters += k
-        rho_f = float(rho)
+        rho_f = float(_sync_fetch(rho))
         if not math.isfinite(rho_f):
             return x, iters, rho_f, -1
         if rho_f < tol2:
@@ -401,19 +471,14 @@ def _cg_device_loop(A, b, x, r, tol, maxiter, M, conv_test_iters):
     rho = torch.zeros((), dtype=b.dtype, device=b.device)
     iters = 0
     while iters < maxiter:
-        tested = iters % conv_test_iters == 0 or iters == maxiter - 1
-        if tested and iters > 0 and bool(_vdot(r, r).real.cpu() < tol2):
+        if iters > 0 and _tested(iters, maxiter, conv_test_iters) and _converged(r, tol2):
             break
         z = M.matvec(r)
         rho1 = rho
         rho = _vdot(r, z)
-        if iters == 0:
-            p = z
-        else:
-            p = z + (rho / torch.where(rho1 == 0, torch.ones_like(rho1), rho1)) * p
+        p = z if iters == 0 else z + (rho / _nz(rho1)) * p
         q = A.matvec(p)
-        pq = _vdot(p, q)
-        alpha = rho / torch.where(pq == 0, torch.ones_like(pq), pq)  # 0/0 guard
+        alpha = rho / _nz(_vdot(p, q))  # 0/0 guard
         x = x + alpha * p
         r = r - alpha * q
         iters += 1
@@ -440,10 +505,16 @@ def _cg_host_loop(A, b, x, tol, maxiter, M, callback, conv_test_iters):
         if callback is not None:
             callback(x)
         if (iters % conv_test_iters == 0 or iters == maxiter - 1) and float(
-            torch.linalg.vector_norm(r)
+            _sync_fetch(torch.linalg.vector_norm(r))
         ) < tol:
             break
     return x, iters
+
+
+def spsolve(A, b, **kwargs):
+    """Sparse solve through :func:`cg`; returns x."""
+    x, _ = cg(A, b, **kwargs)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -471,3 +542,970 @@ def batched_gmres(A, b, **kwargs):
     from .batch.krylov import batched_gmres as _impl
 
     return _impl(A, b, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# CGS, BiCG, BiCGSTAB: cg's device loop, host reads at its test points
+# ---------------------------------------------------------------------------
+def _bicg_setup(A, b, x0, tol, maxiter):
+    """The common start of cgs, bicg and bicgstab: (A as an operator, b,
+    x, r = b - A x, tol^2 on the device, maxiter)."""
+    b = as_tensor(b, _operator_device(A, b))
+    if maxiter is None:
+        maxiter = b.shape[0] * 10
+    A = make_linear_operator(A)
+    x = torch.zeros_like(b) if x0 is None else as_tensor(x0, b.device)
+    r = b - A.matvec(x)
+    tol2 = torch.tensor(tol, dtype=r.real.dtype, device=b.device) ** 2
+    return A, b, x, r, tol2, maxiter
+
+
+# ---------------------------------------------------------------------------
+# CGS
+# ---------------------------------------------------------------------------
+def cgs(A, b, x0=None, tol=1e-08, maxiter=None, callback=None, conv_test_iters=25):
+    """Conjugate gradient squared; returns (x, iters). Stops on absolute
+    ||r|| < tol, read on the host only at ``cg``'s test points;
+    ``callback(x)`` is called once, on the final iterate."""
+    A, b, x, r, tol2, maxiter = _bicg_setup(A, b, x0, tol, maxiter)
+    rtilde = r
+    u = p = q = torch.zeros_like(b)
+    rho = torch.zeros((), dtype=b.dtype, device=b.device)
+    iters = 0
+    while iters < maxiter:
+        if iters > 0 and _tested(iters, maxiter, conv_test_iters) and _converged(r, tol2):
+            break
+        rho_new = _vdot(rtilde, r)
+        beta = rho_new / _nz(rho)
+        if iters == 0:
+            u = p = r
+        else:
+            u = r + beta * q
+            p = u + beta * (q + beta * p)
+        v = A.matvec(p)
+        alpha = rho_new / _nz(_vdot(rtilde, v))
+        q = u - alpha * v
+        uq = u + q
+        x = x + alpha * uq
+        r = r - alpha * A.matvec(uq)
+        rho = rho_new
+        iters += 1
+    if callback is not None:
+        callback(x)
+    return x, iters
+
+
+# ---------------------------------------------------------------------------
+# BiCG
+# ---------------------------------------------------------------------------
+def bicg(A, b, x0=None, tol=1e-08, maxiter=None, callback=None, conv_test_iters=25):
+    """Biconjugate gradient: one product with A and one with its adjoint
+    an iteration; returns (x, iters), ``cgs``'s stopping rule."""
+    A, b, x, r, tol2, maxiter = _bicg_setup(A, b, x0, tol, maxiter)
+    rt = r
+    p = pt = torch.zeros_like(b)
+    rho = torch.zeros((), dtype=b.dtype, device=b.device)
+    iters = 0
+    while iters < maxiter:
+        if iters > 0 and _tested(iters, maxiter, conv_test_iters) and _converged(r, tol2):
+            break
+        rho_new = _vdot(rt, r)
+        beta = rho_new / _nz(rho)
+        if iters == 0:
+            p, pt = r, rt
+        else:
+            p, pt = r + beta * p, rt + beta * pt
+        q = A.matvec(p)
+        qt = A.rmatvec(pt)
+        alpha = rho_new / _nz(_vdot(pt, q))  # 0/0 guard: b = 0 or an exact x0
+        x = x + alpha * p
+        r = r - alpha * q
+        rt = rt - alpha * qt
+        rho = rho_new
+        iters += 1
+    if callback is not None:
+        callback(x)
+    return x, iters
+
+
+# ---------------------------------------------------------------------------
+# BiCGSTAB
+# ---------------------------------------------------------------------------
+def bicgstab(A, b, x0=None, tol=1e-08, maxiter=None, callback=None, conv_test_iters=25):
+    """BiCGStab with the reference's guards on rho, omega and <t, t>;
+    returns (x, iters), ``cgs``'s stopping rule."""
+    A, b, x, r, tol2, maxiter = _bicg_setup(A, b, x0, tol, maxiter)
+    rtilde = r
+    p = v = torch.zeros_like(b)
+    rho = torch.zeros((), dtype=b.dtype, device=b.device)
+    alpha = omega = torch.ones((), dtype=b.dtype, device=b.device)
+    iters = 0
+    while iters < maxiter:
+        if iters > 0 and _tested(iters, maxiter, conv_test_iters) and _converged(r, tol2):
+            break
+        rho_new = _vdot(rtilde, r)
+        beta = (rho_new / _nz(rho)) * (alpha / _nz(omega))
+        p = r if iters == 0 else r + beta * (p - omega * v)
+        v = A.matvec(p)
+        alpha = rho_new / _nz(_vdot(rtilde, v))  # 0/0 guard: b = 0 or an exact x0
+        s = r - alpha * v
+        t = A.matvec(s)
+        omega = _vdot(t, s) / _nz(_vdot(t, t))
+        x = x + alpha * p + omega * s
+        r = s - omega * t
+        rho = rho_new
+        iters += 1
+    if callback is not None:
+        callback(x)
+    return x, iters
+
+
+# ---------------------------------------------------------------------------
+# GMRES: restarted, Givens-rotation least squares
+# ---------------------------------------------------------------------------
+# Counts device -> host fetches made by the solver drivers: reset it, run a
+# solve, read it
+HOST_SYNCS = 0
+
+
+def _sync_fetch(x):
+    """Fetch a device value to the host, counting the round trip."""
+    global HOST_SYNCS
+    HOST_SYNCS += 1
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def gmres(A, b, x0=None, tol=1e-08, restart=None, maxiter=None, M=None, callback=None,
+          atol=None):
+    """Restarted GMRES (right side ``M``); returns (x, iters). Converges on
+    ||r|| <= max(tol ||b||, atol). Each restart cycle runs on the device
+    (:func:`_gmres_cycle`) and the host fetches one packed
+    (inner steps, entry residual, breakdown) triple a cycle;
+    ``callback(x)`` is called after every cycle that did work. A complex A,
+    b or x0 makes the Krylov basis complex."""
+    b = as_tensor(b, _operator_device(A, b))
+    n = b.shape[0]
+    A = make_linear_operator(A)
+    M = IdentityOperator(A.shape, dtype=A.dtype) if M is None else make_linear_operator(M)
+    dt = torch.promote_types(b.dtype, A.dtype)
+    if x0 is not None:
+        x0 = as_tensor(x0, b.device)
+        dt = torch.promote_types(dt, x0.dtype)
+    b = b.to(dt)
+    restart = min(20 if restart is None else restart, n)
+    if maxiter is None:
+        maxiter = max(n // restart, 1) * 10
+    x = torch.zeros_like(b) if x0 is None else x0.to(dt)
+    target = torch.clamp(tol * torch.linalg.vector_norm(b),
+                         min=max(atol if atol is not None else 0.0, 1e-30))
+    total_iters = 0
+    for _outer in range(maxiter):
+        x, info = _gmres_cycle(A, M, x, b, target, restart)
+        # the one host fetch of the cycle
+        inner, _beta, bdown = _sync_fetch(info)
+        inner = int(inner)
+        if inner == 0 and not bdown:
+            break  # converged on entry
+        # a breakdown stage did a matvec but adds no column; count it so
+        # iters reflects work and the outer loop stays bounded
+        total_iters += inner + (1 if bdown else 0)
+        if callback is not None:
+            callback(x)
+    return x, total_iters
+
+
+def _gmres_cycle(A, M, x, b, target, restart: int):
+    """One restart cycle with no host read: ``restart`` Arnoldi steps, each
+    a fixed list of tensor ops, masked once the device flag ``done`` is set
+    (converged, a breakdown, or an entry residual already at the target).
+    Step j orthogonalizes against V[:j+1] by two passes of classical
+    Gram-Schmidt, applies the j accumulated Givens rotations to the new
+    Hessenberg column and makes rotation j; a masked triangular solve
+    then updates x. Returns ``(x', info)``, ``info = [inner steps, entry
+    residual norm, breakdown flag]``."""
+    n = b.shape[0]
+    dt, dev = b.dtype, b.device
+    rdt = _real_dtype(dt)
+    r = M.matvec(b - A.matvec(x))
+    beta = torch.linalg.vector_norm(r)
+    start_ok = beta > target
+    V = torch.zeros((restart + 1, n), dtype=dt, device=dev)
+    V[0] = r / torch.where(start_ok, beta, torch.ones_like(beta))
+    H = torch.zeros((restart + 1, restart), dtype=dt, device=dev)
+    G = torch.zeros((restart, 2, 2), dtype=dt, device=dev)  # rotation i: [c, s; -conj(s), c]
+    g = torch.zeros((restart + 1,), dtype=dt, device=dev)
+    g[0] = beta.to(dt)
+    k = torch.zeros((), dtype=torch.int64, device=dev)
+    done = ~start_ok
+    bdown = torch.zeros((), dtype=torch.bool, device=dev)
+    one = torch.ones((), dtype=rdt, device=dev)
+    for j in range(restart):
+        active = ~done
+        w = M.matvec(A.matvec(V[j]))
+        Vj = V[: j + 1]
+        hcol = Vj.conj() @ w
+        w = w - hcol @ Vj
+        h2 = Vj.conj() @ w  # one reorthogonalization pass
+        w = w - h2 @ Vj
+        hkk = torch.linalg.vector_norm(w)
+        grew = hkk > 1e-30
+        V[j + 1] = torch.where(active & grew, w / torch.where(grew, hkk, one), V[j + 1])
+        col = torch.zeros((restart + 1,), dtype=dt, device=dev)
+        col[: j + 1] = hcol + h2
+        col[j + 1] = hkk.to(dt)
+        for i in range(j):  # the accumulated rotations, in order
+            col[i : i + 2] = G[i] @ col[i : i + 2]
+        hk, hk1 = col[j], col[j + 1]
+        ahk, ahk1 = hk.abs(), hk1.abs()
+        denom = torch.sqrt(ahk * ahk + ahk1 * ahk1)
+        breakdown = denom <= 0
+        denom_s = torch.where(breakdown, one, denom)
+        # rotation j: real c, possibly complex s
+        ck = torch.where(ahk == 0, 0.0, ahk / denom_s)
+        hk_unit = torch.where(ahk == 0, 1.0, hk / torch.where(ahk == 0, one, ahk))
+        sk = torch.where(ahk == 0, torch.conj(hk1) / torch.where(ahk1 == 0, one, ahk1),
+                         hk_unit * torch.conj(hk1) / denom_s)
+        col[j] = ck * hk + sk * hk1
+        col[j + 1].zero_()
+        H[:, j] = torch.where(active, col, H[:, j])
+        rot = torch.stack([torch.stack([ck.to(dt), sk]), torch.stack([-torch.conj(sk), ck.to(dt)])])
+        G[j] = torch.where(active, rot, G[j])
+        gk1 = -torch.conj(sk) * g[j]
+        step = active & ~breakdown
+        g_j = torch.where(step, ck * g[j], g[j])
+        g[j + 1] = torch.where(step, gk1, g[j + 1])
+        g[j] = g_j
+        k = k + step.to(k.dtype)
+        bdown = bdown | (active & breakdown)
+        done = done | (active & (breakdown | (gk1.abs() < target)))
+    # masked triangular solve of H[:k, :k] y = g[:k]: columns past k get a
+    # unit diagonal and a zero right-hand side
+    mk = (torch.arange(restart, device=dev) < k).to(rdt)
+    Hs = H[:restart, :restart] * (mk[:, None] * mk[None, :]) + torch.diag(1.0 - mk).to(dt)
+    y = torch.linalg.solve_triangular(Hs, (g[:restart] * mk)[:, None], upper=True)[:, 0]
+    x = x + y @ V[:restart]
+    return x, torch.stack([k.to(rdt), beta.to(rdt), bdown.to(rdt)])
+
+
+# ---------------------------------------------------------------------------
+# LSQR: Golub-Kahan bidiagonalization
+# ---------------------------------------------------------------------------
+#: iterations a device loop (:func:`_device_while`) runs between two host
+#: reads of its stop flag
+CHECK_EVERY = 32
+
+
+def _device_while(cond, body, state, limit: int, count: str = "itn", stats=None, callback=None):
+    """The reference's ``lax.while_loop`` on torch: ``state`` a dict of
+    tensors, ``cond(state)`` a device bool, ``body(state)`` the next state,
+    ``state[count]`` an iteration counter that ``cond`` stops at ``limit``.
+
+    Runs chunks of at most ``CHECK_EVERY`` iterations with no host read,
+    each iteration past the stop condition frozen: every tensor of the
+    state (the counter included) keeps its value under ``torch.where``.
+    The iterates and the count are then the reference's, and a NaN from a
+    guarded division after convergence never leaks in. Before each chunk
+    the host fetches the stop flag and the counter, packed with
+    ``stats(state)`` (0-d tensors), in one counted fetch, and cuts the chunk
+    at ``limit``: a solve of ``itn`` iterations makes at most
+    ceil(itn / CHECK_EVERY) + 1 fetches. With a ``callback`` the loop runs
+    eagerly, fetching before and calling ``callback(state["x"])`` after
+    every iteration. Returns the final state, its count and the host
+    values of ``stats`` on it."""
+
+    while True:
+        vals = [cond(state), state[count]] + (list(stats(state)) if stats is not None else [])
+        host = _sync_fetch(torch.stack([v.to(torch.float64) for v in vals]))
+        if not host[0]:
+            return state, int(host[1]), host[2:]
+        if callback is not None:
+            state = body(state)
+            callback(state["x"])
+            continue
+        for _ in range(min(CHECK_EVERY, limit - int(host[1]))):
+            active = cond(state)
+            new = body(state)
+            state = {key: torch.where(active, new[key], v) for key, v in state.items()}
+
+
+def lsqr(A, b, damp=0.0, atol=1e-08, btol=1e-08, conlim=1e8, iter_lim=None, calc_var=False):
+    """Golub-Kahan bidiagonalization least squares (Paige & Saunders, as in
+    scipy), one :func:`_device_while` loop whose scalar recurrences and
+    stopping estimates stay on the device. Returns scipy's 10-tuple
+    (x, istop, itn, r1norm, r2norm, anorm, acond, arnorm, xnorm, var);
+    ``var`` is estimated only under ``calc_var=True`` (zeros otherwise)."""
+    b = as_tensor(b, _operator_device(A, b))
+    A = make_linear_operator(A)
+    dt = torch.promote_types(b.dtype, A.dtype)
+    b = b.to(dt)
+    dev = b.device
+    m, n = A.shape
+    if iter_lim is None:
+        iter_lim = 2 * n
+    rdt = _real_dtype(dt)
+    eps = float(torch.finfo(rdt).eps)
+
+    def scalar(v):
+        return torch.tensor(v, dtype=rdt, device=dev)
+
+    dampsq = scalar(damp * damp)
+    ctol = scalar(1.0 / conlim if conlim > 0 else 0.0)
+    atol_d, btol_d = scalar(atol), scalar(btol)
+    x0 = torch.zeros((n,), dtype=dt, device=dev)
+    bnorm = torch.linalg.vector_norm(b)
+    beta0 = bnorm
+    ok0 = beta0 > 0
+    u = b / torch.where(ok0, beta0, torch.ones_like(beta0))
+    v = A.rmatvec(u)
+    alpha0 = torch.linalg.vector_norm(v)
+    v = v / torch.where(alpha0 > 0, alpha0, torch.ones_like(alpha0))
+    zero = scalar(0.0)
+    init = dict(
+        x=x0, u=u, v=v, w=v, var=torch.zeros((n,), dtype=dt, device=dev),
+        alpha=alpha0.to(rdt), phibar=beta0.to(rdt), rhobar=alpha0.to(rdt),
+        anorm=zero, ddnorm=zero, res2=zero, xxnorm=zero, z=zero,
+        cs2=scalar(-1.0), sn2=zero,
+        rnorm=beta0.to(rdt), r1norm=beta0.to(rdt), xnorm=zero, acond=zero,
+        arnorm=(alpha0 * beta0).to(rdt),
+        itn=torch.zeros((), dtype=torch.int32, device=dev),
+        istop=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+    # degenerate entries (b == 0 or A^H b == 0): never enter the loop
+    dead = ~ok0 | (init["arnorm"] == 0)
+    bn = bnorm.to(rdt)
+
+    def cond(s):
+        return (s["istop"] == 0) & (s["itn"] < iter_lim) & ~dead
+
+    def body(s):
+        itn = s["itn"] + 1
+        u = A.matvec(s["v"]) - s["alpha"].to(dt) * s["u"]
+        beta = torch.linalg.vector_norm(u).to(rdt)
+        bpos = beta > 0
+        u = u / torch.where(bpos, beta, 1.0).to(dt)
+        anorm = torch.where(bpos, torch.sqrt(s["anorm"] ** 2 + s["alpha"] ** 2 + beta**2 + dampsq),
+                            s["anorm"])
+        v_new = A.rmatvec(u) - beta.to(dt) * s["v"]
+        alpha_new = torch.linalg.vector_norm(v_new).to(rdt)
+        v_new = v_new / torch.where(alpha_new > 0, alpha_new, 1.0).to(dt)
+        v = torch.where(bpos, v_new, s["v"])
+        alpha = torch.where(bpos, alpha_new, s["alpha"])
+        # eliminate the damping diagonal with its own rotation; with no
+        # damping rhobar1 is rhobar (signed: sqrt would drop the sign)
+        damped = dampsq > 0
+        rhobar1 = torch.where(damped, torch.sqrt(s["rhobar"] ** 2 + dampsq), s["rhobar"])
+        psi = torch.where(damped, (dampsq**0.5 / rhobar1) * s["phibar"], zero)
+        phibar = torch.where(damped, (s["rhobar"] / rhobar1) * s["phibar"], s["phibar"])
+        # plane rotation annihilating beta
+        rho = torch.sqrt(rhobar1**2 + beta**2)
+        cs = rhobar1 / rho
+        sn = beta / rho
+        theta = sn * alpha
+        rhobar = -cs * alpha
+        phi = cs * phibar
+        phibar = sn * phibar
+        tau = sn * phi
+        x = s["x"] + (phi / rho).to(dt) * s["w"]
+        ddnorm = s["ddnorm"] + _vdot(s["w"], s["w"]).real.to(rdt) / rho**2
+        var = s["var"] + (s["w"] / rho.to(dt)) ** 2 if calc_var else s["var"]
+        w = v - (theta / rho).to(dt) * s["w"]
+        # estimates of ||x||, cond(A) and the residual norms
+        delta = s["sn2"] * rho
+        gambar = -s["cs2"] * rho
+        rhs = phi - delta * s["z"]
+        zbar = rhs / gambar
+        xnorm = torch.sqrt(s["xxnorm"] + zbar**2)
+        gamma = torch.sqrt(gambar**2 + theta**2)
+        cs2 = gambar / gamma
+        sn2 = theta / gamma
+        z = rhs / gamma
+        xxnorm = s["xxnorm"] + z**2
+        acond = anorm * torch.sqrt(ddnorm)
+        res2 = s["res2"] + psi**2
+        rnorm = torch.sqrt(phibar**2 + res2)
+        arnorm = alpha * torch.abs(tau)
+        r1sq = rnorm**2 - dampsq * xxnorm
+        r1norm = torch.sqrt(torch.abs(r1sq)) * torch.where(r1sq >= 0, 1.0, -1.0).to(rdt)
+        # scipy's tests, later ones taking priority
+        test1 = rnorm / bn
+        test2 = arnorm / (anorm * rnorm + eps)
+        test3 = 1.0 / (acond + eps)
+        t1 = test1 / (1 + anorm * xnorm / bn)
+        rtol = btol_d + atol_d * anorm * xnorm / bn
+        istop = torch.zeros_like(s["istop"])
+        istop = torch.where(itn >= iter_lim, 7, istop)
+        istop = torch.where(1 + test3 <= 1, 6, istop)
+        istop = torch.where(1 + test2 <= 1, 5, istop)
+        istop = torch.where(1 + t1 <= 1, 4, istop)
+        istop = torch.where(test3 <= ctol, 3, istop)
+        istop = torch.where(test2 <= atol_d, 2, istop)
+        istop = torch.where(test1 <= rtol, 1, istop)
+        return dict(
+            x=x, u=u, v=v, w=w, var=var, alpha=alpha, phibar=phibar, rhobar=rhobar,
+            anorm=anorm, ddnorm=ddnorm, res2=res2, xxnorm=xxnorm, z=z, cs2=cs2, sn2=sn2,
+            rnorm=rnorm, r1norm=r1norm, xnorm=xnorm, acond=acond, arnorm=arnorm,
+            itn=itn, istop=istop,
+        )
+
+    def stats(s):
+        return (s["istop"], s["itn"], s["r1norm"], s["rnorm"], s["anorm"], s["acond"],
+                s["arnorm"], s["xnorm"], dead, bn)
+
+    out, _, st = _device_while(cond, body, init, iter_lim, stats=stats)
+    if st[8]:  # degenerate: b == 0 or A^H b == 0
+        r0 = float(st[9])
+        return x0, 0, 0, r0, r0, 0.0, 0.0, 0.0, 0.0, init["var"]
+    return (out["x"], int(st[0]), int(st[1]), float(st[2]), float(st[3]), float(st[4]),
+            float(st[5]), float(st[6]), float(st[7]), out["var"])
+
+
+# ---------------------------------------------------------------------------
+# MINRES / LSMR / TFQMR / QMR: one device loop each
+# ---------------------------------------------------------------------------
+def _sym_ortho(a, b):
+    """Stable Givens (c, s, r) with r = hypot(a, b); c = 1, s = 0 when
+    r = 0. Scaled like hypot, so squaring cannot overflow in f32."""
+    scale = torch.maximum(torch.abs(a), torch.abs(b))
+    an, bn = a / _nz(scale), b / _nz(scale)
+    r = scale * torch.sqrt(an * an + bn * bn)
+    safe = _nz(r)
+    return torch.where(r == 0, 1.0, a / safe), torch.where(r == 0, 0.0, b / safe), r
+
+
+def minres(A, b, x0=None, shift=0.0, tol=1e-5, maxiter=None, M=None, callback=None,
+           conv_test_iters=1):
+    """MINRES for symmetric, possibly indefinite systems (A - shift I) x = b,
+    ``M`` a symmetric positive-definite preconditioner (scipy semantics).
+    Converges on the M-preconditioned residual estimate
+    <= tol ||b||, tested every ``conv_test_iters`` iterations. Returns
+    (x, iters)."""
+    b = as_tensor(b, _operator_device(A, b))
+    n = b.shape[0]
+    if maxiter is None:
+        maxiter = 5 * n
+    A = make_linear_operator(A)
+    dt = torch.promote_types(b.dtype, A.dtype)
+    b = b.to(dt)
+    dev = b.device
+    rdt = _real_dtype(dt)
+    x = torch.zeros_like(b) if x0 is None else as_tensor(x0, dev).to(dt)
+    shift_d = torch.tensor(shift, dtype=dt, device=dev)
+    Mop = None if M is None else make_linear_operator(M)
+
+    def op(v):
+        return A.matvec(v) - shift_d * v
+
+    def precond(v):
+        return v if Mop is None else Mop.matvec(v)
+
+    r1 = b - op(x)
+    y1 = precond(r1)
+    b1sq = _vdot(r1, y1).real
+    beta1 = torch.sqrt(torch.clamp(b1sq, min=0)).to(rdt)
+    bnorm = torch.sqrt(_vdot(b, b).real).to(rdt)
+    # relative to ||b||, not ||r0||: a warm x0 must not tighten the target
+    tiny = float(torch.finfo(rdt).tiny)
+    target = torch.tensor(tol, dtype=rdt, device=dev) * torch.clamp(bnorm, min=tiny)
+    zero = torch.zeros((), dtype=rdt, device=dev)
+    zvec = torch.zeros_like(b)
+    init = dict(
+        x=x, r1=r1, r2=r1, y=y1, w=zvec, w2=zvec,
+        oldb=zero, beta=beta1, dbar=zero, epsln=zero, phibar=beta1,
+        cs=torch.tensor(-1.0, dtype=rdt, device=dev), sn=zero,
+        itn=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+    dead = (beta1 == 0) | (bnorm == 0)
+    b1sq_h, bnorm_h = _sync_fetch(torch.stack([b1sq.to(rdt), bnorm]))
+    if Mop is not None and b1sq_h < 0:
+        raise ValueError("minres: indefinite preconditioner")
+    if x0 is not None and bnorm_h == 0:
+        # b == 0: the solution of A x = 0 is x = 0 (scipy), not x0
+        return torch.zeros_like(b), 0
+
+    def cond(s):
+        tested = ((s["itn"] % conv_test_iters) == 0) | (s["itn"] >= maxiter)
+        converged = tested & (s["itn"] > 0) & (s["phibar"] <= target)
+        return (s["itn"] < maxiter) & ~converged & ~dead
+
+    def body(s):
+        itn = s["itn"] + 1
+        beta = s["beta"]
+        v = s["y"] / _nz(beta).to(dt)
+        y = op(v)
+        y = torch.where(itn >= 2, y - (beta / _nz(s["oldb"])).to(dt) * s["r1"], y)
+        alfa = _vdot(v, y).real.to(rdt)
+        y = y - (alfa / _nz(beta)).to(dt) * s["r2"]
+        r1_n, r2_n = s["r2"], y
+        y_n = precond(y)
+        oldb = beta
+        beta_n = torch.sqrt(torch.clamp(_vdot(y, y_n).real, min=0)).to(rdt)
+        # the previous rotation on the new column of T
+        oldeps = s["epsln"]
+        delta = s["cs"] * s["dbar"] + s["sn"] * alfa
+        gbar = s["sn"] * s["dbar"] - s["cs"] * alfa
+        epsln = s["sn"] * beta_n
+        dbar = -s["cs"] * beta_n
+        # the current rotation
+        cs, sn, gamma = _sym_ortho(gbar, beta_n)
+        gamma = torch.clamp(gamma, min=tiny)
+        phi = cs * s["phibar"]
+        phibar = sn * s["phibar"]
+        w1, w2 = s["w2"], s["w"]
+        w = (v - oldeps.to(dt) * w1 - delta.to(dt) * w2) / gamma.to(dt)
+        return dict(
+            x=s["x"] + phi.to(dt) * w, r1=r1_n, r2=r2_n, y=y_n, w=w, w2=w2,
+            oldb=oldb, beta=beta_n, dbar=dbar, epsln=epsln, phibar=phibar, cs=cs, sn=sn,
+            itn=itn,
+        )
+
+    out, itn, _ = _device_while(cond, body, init, maxiter, callback=callback)
+    return out["x"], itn
+
+
+def lsmr(A, b, damp=0.0, atol=1e-6, btol=1e-6, conlim=1e8, maxiter=None, x0=None):
+    """LSMR (Fong & Saunders): least squares by Golub-Kahan
+    bidiagonalization with a MINRES-shaped recurrence, one
+    :func:`_device_while` loop. Returns scipy's 8-tuple
+    (x, istop, itn, normr, normar, norma, conda, normx). With ``x0`` the
+    bidiagonalization starts from b - A x0 (the stopping norms then
+    describe that residual system)."""
+    b = as_tensor(b, _operator_device(A, b))
+    A = make_linear_operator(A)
+    dt = torch.promote_types(b.dtype, A.dtype)
+    b = b.to(dt)
+    dev = b.device
+    m, n = A.shape
+    if maxiter is None:
+        maxiter = min(m, n) * 5
+    rdt = _real_dtype(dt)
+
+    def scalar(v):
+        return torch.tensor(v, dtype=rdt, device=dev)
+
+    damp_d = scalar(damp)
+    ctol = scalar(1.0 / conlim if conlim > 0 else 0.0)
+    atol_d, btol_d = scalar(atol), scalar(btol)
+    x_off = None if x0 is None else as_tensor(x0, dev).to(dt)
+    if x_off is not None:
+        b = b - A.matvec(x_off)
+    normb = torch.linalg.vector_norm(b).to(rdt)
+    beta = normb
+    u = b / torch.where(beta > 0, beta, 1.0).to(dt)
+    v = torch.where(beta > 0, A.rmatvec(u), torch.zeros((n,), dtype=dt, device=dev))
+    alpha = torch.linalg.vector_norm(v).to(rdt)
+    v = v / torch.where(alpha > 0, alpha, 1.0).to(dt)
+    zero, one = scalar(0.0), scalar(1.0)
+    init = dict(
+        x=torch.zeros((n,), dtype=dt, device=dev), u=u, v=v,
+        h=v, hbar=torch.zeros((n,), dtype=dt, device=dev),
+        alpha=alpha, beta=beta, alphabar=alpha, zetabar=alpha * beta,
+        rho=one, rhobar=one, cbar=one, sbar=zero, zeta=zero,
+        # the residual-estimate recurrence (Fong & Saunders section 5)
+        betadd=beta, betad=zero, rhodold=one, tautildeold=zero, thetatilde=zero, d=zero,
+        norma2=alpha * alpha, maxrbar=zero, minrbar=scalar(torch.finfo(rdt).max),
+        normr=beta, normar=alpha * beta, norma=alpha, conda=one, normx=zero,
+        itn=torch.zeros((), dtype=torch.int32, device=dev),
+        istop=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+    dead = (normb == 0) | (init["normar"] == 0)
+    normb_s = _nz(normb)
+
+    def cond(s):
+        return (s["istop"] == 0) & (s["itn"] < maxiter) & ~dead
+
+    def body(s):
+        itn = s["itn"] + 1
+        u = A.matvec(s["v"]) - s["alpha"].to(dt) * s["u"]
+        beta = torch.linalg.vector_norm(u).to(rdt)
+        u = u / torch.where(beta > 0, beta, 1.0).to(dt)
+        v = A.rmatvec(u) - beta.to(dt) * s["v"]
+        alpha = torch.linalg.vector_norm(v).to(rdt)
+        v = v / torch.where(alpha > 0, alpha, 1.0).to(dt)
+        # rotation P-hat eliminates the damping
+        chat, shat, alphahat = _sym_ortho(s["alphabar"], damp_d)
+        # rotation P
+        rhoold = s["rho"]
+        c, sgiv, rho = _sym_ortho(alphahat, beta)
+        thetanew = sgiv * alpha
+        alphabar = c * alpha
+        # rotation P-bar
+        rhobarold = s["rhobar"]
+        zetaold = s["zeta"]
+        thetabar = s["sbar"] * rho
+        rhotemp = s["cbar"] * rho
+        cbar, sbar, rhobar = _sym_ortho(s["cbar"] * rho, thetanew)
+        zeta = cbar * s["zetabar"]
+        zetabar = -sbar * s["zetabar"]
+        # h, hbar, x
+        hbar = s["h"] - (thetabar * rho / _nz(rhoold * rhobarold)).to(dt) * s["hbar"]
+        x = s["x"] + (zeta / _nz(rho * rhobar)).to(dt) * hbar
+        h = v - (thetanew / _nz(rho)).to(dt) * s["h"]
+        # the ||r|| estimate
+        betaacute = chat * s["betadd"]
+        betacheck = -shat * s["betadd"]
+        betahat = c * betaacute
+        betadd = -sgiv * betaacute
+        thetatildeold = s["thetatilde"]
+        ctildeold, stildeold, rhotildeold = _sym_ortho(s["rhodold"], thetabar)
+        thetatilde = stildeold * rhobar
+        rhodold = ctildeold * rhobar
+        betad = -stildeold * s["betad"] + ctildeold * betahat
+        tautildeold = (zetaold - thetatildeold * s["tautildeold"]) / _nz(rhotildeold)
+        taud = (zeta - thetatilde * tautildeold) / _nz(rhodold)
+        d = s["d"] + betacheck * betacheck
+        normr = torch.sqrt(d + (betad - taud) ** 2 + betadd * betadd)
+        norma2 = s["norma2"] + beta * beta
+        norma = torch.sqrt(norma2)
+        norma2 = norma2 + alpha * alpha
+        normar = torch.abs(zetabar)
+        maxrbar = torch.maximum(s["maxrbar"], rhobarold)
+        minrbar = torch.where(itn > 1, torch.minimum(s["minrbar"], rhobarold), s["minrbar"])
+        conda = torch.maximum(maxrbar, rhotemp) / _nz(torch.minimum(minrbar, rhotemp))
+        normx = torch.linalg.vector_norm(x).to(rdt)
+        # scipy's istop 1-7
+        test1 = normr / normb_s
+        test2 = normar / _nz(norma * normr)
+        test3 = 1.0 / _nz(conda)
+        t1 = test1 / (1 + norma * normx / normb_s)
+        rtol = btol_d + atol_d * norma * normx / normb_s
+        istop = torch.zeros_like(s["istop"])
+        istop = torch.where(itn >= maxiter, 7, istop)
+        istop = torch.where(1 + test3 <= 1, 6, istop)
+        istop = torch.where(1 + test2 <= 1, 5, istop)
+        istop = torch.where(1 + t1 <= 1, 4, istop)
+        istop = torch.where(test3 <= ctol, 3, istop)
+        istop = torch.where(test2 <= atol_d, 2, istop)
+        istop = torch.where(test1 <= rtol, 1, istop)
+        return dict(
+            x=x, u=u, v=v, h=h, hbar=hbar, alpha=alpha, beta=beta, alphabar=alphabar,
+            zetabar=zetabar, rho=rho, rhobar=rhobar, cbar=cbar, sbar=sbar, zeta=zeta,
+            betadd=betadd, betad=betad, rhodold=rhodold, tautildeold=tautildeold,
+            thetatilde=thetatilde, d=d, norma2=norma2, maxrbar=maxrbar, minrbar=minrbar,
+            normr=normr, normar=normar, norma=norma, conda=conda, normx=normx,
+            itn=itn, istop=istop,
+        )
+
+    def stats(s):
+        normx = s["normx"] if x_off is None else torch.linalg.vector_norm(s["x"] + x_off)
+        return (s["istop"], s["itn"], s["normr"], s["normar"], s["norma"], s["conda"], normx)
+
+    out, _, st = _device_while(cond, body, init, maxiter, stats=stats)
+    x = out["x"] if x_off is None else out["x"] + x_off
+    return (x, int(st[0]), int(st[1]), float(st[2]), float(st[3]), float(st[4]), float(st[5]),
+            float(st[6]))
+
+
+def tfqmr(A, b, x0=None, tol=1e-8, maxiter=None, M=None, callback=None, atol=0.0):
+    """Transpose-free QMR (Freund 1993; scipy semantics): one matvec a
+    half-iteration, the even and odd halves merged with ``torch.where`` in
+    one :func:`_device_while` loop. ``M`` is a left preconditioner (solves
+    M A x = M b); converges on tau sqrt(m + 1) <= max(atol, tol ||M r0||).
+    Returns (x, iters)."""
+    b = as_tensor(b, _operator_device(A, b))
+    n = b.shape[0]
+    if maxiter is None:
+        maxiter = 2 * n * 10
+    A = make_linear_operator(A)
+    dt = torch.promote_types(b.dtype, A.dtype)
+    b = b.to(dt)
+    dev = b.device
+    rdt = _real_dtype(dt)
+    x = torch.zeros_like(b) if x0 is None else as_tensor(x0, dev).to(dt)
+    Mop = None if M is None else make_linear_operator(M)
+
+    def opmv(v):
+        av = A.matvec(v)
+        return av if Mop is None else Mop.matvec(av)
+
+    r = b - A.matvec(x)
+    if Mop is not None:
+        r = Mop.matvec(r)
+    r0norm = torch.sqrt(_vdot(r, r).real).to(rdt)
+    target = torch.clamp(torch.tensor(tol, dtype=rdt, device=dev) * r0norm, min=float(atol))
+    uhat0 = opmv(r)
+    init = dict(
+        x=x, u=r, w=r, v=uhat0, uhat=uhat0, d=torch.zeros_like(b),
+        rho=_vdot(r, r), alpha=torch.ones((), dtype=dt, device=dev),
+        theta=torch.zeros((), dtype=rdt, device=dev), eta=torch.zeros((), dtype=dt, device=dev),
+        tau=r0norm, m=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+    dead = r0norm == 0
+
+    def cond(s):
+        converged = s["tau"] * torch.sqrt(s["m"].to(rdt) + 1) <= target
+        return (s["m"] < maxiter) & ~converged & ~dead
+
+    def body(s):
+        even = (s["m"] % 2) == 0
+        vtr = _vdot(r, s["v"])  # r is r* (the frozen shadow residual)
+        alpha = torch.where(even, s["rho"] / _nz(vtr), s["alpha"])
+        u_even = s["u"] - alpha * s["v"]
+        w_n = s["w"] - alpha * s["uhat"]
+        d_n = s["u"] + ((s["theta"] ** 2).to(dt) / _nz(alpha)) * s["eta"] * s["d"]
+        wnorm = torch.sqrt(_vdot(w_n, w_n).real).to(rdt)
+        theta_n = wnorm / _nz(s["tau"])
+        c2 = 1.0 / (1.0 + theta_n * theta_n)
+        tau_n = s["tau"] * theta_n * torch.sqrt(c2)
+        eta_n = c2.to(dt) * alpha
+        x_n = s["x"] + eta_n * d_n
+        # the odd half: new rho and beta, u, v
+        rho_new = _vdot(r, w_n)
+        beta = rho_new / _nz(s["rho"])
+        u_odd = w_n + beta * s["u"]
+        v_partial = beta * s["uhat"] + beta * beta * s["v"]
+        u_n = torch.where(even, u_even, u_odd)
+        uhat_n = opmv(u_n)
+        return dict(
+            x=x_n, u=u_n, w=w_n, v=torch.where(even, s["v"], v_partial + uhat_n), uhat=uhat_n,
+            d=d_n, rho=torch.where(even, s["rho"], rho_new), alpha=alpha, theta=theta_n,
+            eta=eta_n, tau=tau_n, m=s["m"] + 1,
+        )
+
+    out, m, _ = _device_while(cond, body, init, maxiter, count="m", callback=callback)
+    return out["x"], m
+
+
+def qmr(A, b, x0=None, tol=1e-8, maxiter=None, M1=None, M2=None, callback=None,
+        conv_test_iters=25):
+    """Quasi-minimal residual (Freund & Nachtigal, no look-ahead; the
+    Templates formulation scipy implements): one product with A and one
+    with its adjoint an iteration. ``M1``/``M2`` are the left and right
+    preconditioner factors, operators that apply the inverse (their
+    ``rmatvec`` the inverse adjoint). Converges on ||r|| <= tol ||b||,
+    tested every ``conv_test_iters`` iterations. Returns (x, iters)."""
+    b = as_tensor(b, _operator_device(A, b))
+    n = b.shape[0]
+    if maxiter is None:
+        maxiter = n * 10
+    A = make_linear_operator(A)
+    dt = torch.promote_types(b.dtype, A.dtype)
+    b = b.to(dt)
+    dev = b.device
+    rdt = _real_dtype(dt)
+    x = torch.zeros_like(b) if x0 is None else as_tensor(x0, dev).to(dt)
+    M1op = None if M1 is None else make_linear_operator(M1)
+    M2op = None if M2 is None else make_linear_operator(M2)
+
+    def m1(v):
+        return v if M1op is None else M1op.matvec(v)
+
+    def m1h(v):
+        return v if M1op is None else M1op.rmatvec(v)
+
+    def m2(v):
+        return v if M2op is None else M2op.matvec(v)
+
+    def m2h(v):
+        return v if M2op is None else M2op.rmatvec(v)
+
+    r = b - A.matvec(x)
+    tol2 = torch.tensor(tol, dtype=rdt, device=dev) ** 2 * _vdot(b, b).real
+    y0 = m1(r)
+    z0 = m2h(r)
+    rho0 = torch.sqrt(_vdot(y0, y0).real).to(rdt)
+    xi0 = torch.sqrt(_vdot(z0, z0).real).to(rdt)
+    zvec = torch.zeros_like(b)
+    init = dict(
+        x=x, r=r, vtilde=r, wtilde=r, y=y0, z=z0, p=zvec, q=zvec, d=zvec, s=zvec,
+        rho=rho0, xi=xi0, gamma=torch.ones((), dtype=rdt, device=dev),
+        eta=torch.tensor(-1.0, dtype=dt, device=dev), theta=torch.zeros((), dtype=rdt, device=dev),
+        epsq=torch.ones((), dtype=dt, device=dev), itn=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+    dead = rho0 == 0
+
+    def cond(s):
+        tested = ((s["itn"] % conv_test_iters) == 0) | (s["itn"] >= maxiter)
+        converged = tested & (s["itn"] > 0) & (_vdot(s["r"], s["r"]).real <= tol2)
+        return (s["itn"] < maxiter) & ~converged & ~dead
+
+    def body(s):
+        itn = s["itn"] + 1
+        rho_c, xi_c = _nz(s["rho"]).to(dt), _nz(s["xi"]).to(dt)
+        v = s["vtilde"] / rho_c
+        yn = s["y"] / rho_c
+        w = s["wtilde"] / xi_c
+        zn = s["z"] / xi_c
+        delta = _vdot(zn, yn)
+        eps_c = _nz(s["epsq"])
+        first = itn == 1
+        pcoef = torch.where(first, 0.0, s["xi"].to(dt) * delta / eps_c)
+        qcoef = torch.where(first, 0.0, s["rho"].to(dt) * delta / eps_c)
+        p = m2(yn) - pcoef * s["p"]
+        q = m1h(zn) - qcoef * s["q"]
+        ptilde = A.matvec(p)
+        epsq = _vdot(q, ptilde)
+        beta = epsq / _nz(delta)
+        vtilde = ptilde - beta * v
+        y_new = m1(vtilde)
+        rho_new = torch.sqrt(_vdot(y_new, y_new).real).to(rdt)
+        wtilde = A.rmatvec(q) - torch.conj(beta) * w
+        z_new = m2h(wtilde)
+        xi_new = torch.sqrt(_vdot(z_new, z_new).real).to(rdt)
+        absbeta = torch.abs(beta).to(rdt)
+        theta_new = rho_new / _nz(s["gamma"] * absbeta)
+        gamma_new = 1.0 / torch.sqrt(1.0 + theta_new * theta_new)
+        eta_new = (-s["eta"] * s["rho"].to(dt) * (gamma_new * gamma_new).to(dt)
+                   / _nz(beta * (s["gamma"] * s["gamma"]).to(dt)))
+        tg2 = ((s["theta"] * gamma_new) ** 2).to(dt)
+        later = torch.where(first, 0.0, 1.0)
+        d = eta_new * p + later * tg2 * s["d"]
+        snew = eta_new * ptilde + later * tg2 * s["s"]
+        return dict(
+            x=s["x"] + d, r=s["r"] - snew, vtilde=vtilde, wtilde=wtilde, y=y_new, z=z_new,
+            p=p, q=q, d=d, s=snew, rho=rho_new, xi=xi_new, gamma=gamma_new, eta=eta_new,
+            theta=theta_new, epsq=epsq, itn=itn,
+        )
+
+    out, itn, _ = _device_while(cond, body, init, maxiter, callback=callback)
+    return out["x"], itn
+
+
+# ---------------------------------------------------------------------------
+# LGMRES / GCROT(m, k): augmented-subspace Krylov. Both share one cycle:
+# a Krylov basis, augmented with recycled directions (which carry their
+# A-images, so augmentation costs no matvec), and one minimal-residual
+# least squares over the whole block
+# ---------------------------------------------------------------------------
+def _lstsq_min_norm(AZ, r):
+    """The minimum-norm y of min ||r - AZ y||, with singular values below
+    eps * max(n, K) * sigma_max cut (the reference's default ``lstsq``
+    rule, eps of AZ's dtype). A reduced QR of the tall AZ (n x K) runs on
+    its device; the small R and Q^H r move to the host, where an SVD
+    solves R y = Q^H r (R has AZ's singular values)."""
+    n, K = AZ.shape
+    Q, R = torch.linalg.qr(AZ)
+    Rh = _sync_fetch(torch.cat([R, (Q.conj().T @ r)[:, None]], dim=1))
+    R, c = Rh[:, :K], Rh[:, K]
+    U, sv, Vh = np.linalg.svd(R)
+    keep = (sv > 0) & (sv >= np.finfo(sv.dtype).eps * max(n, K) * sv[0])
+    coef = (U.conj().T @ c) / np.where(keep, sv, 1)
+    y = Vh.conj().T @ np.where(keep, coef, 0)
+    return torch.from_numpy(np.ascontiguousarray(y)).to(device=AZ.device, dtype=AZ.dtype)
+
+
+def _augmented_cycle(A, Mop, r, inner_m, aug):
+    """One cycle: Krylov directions from r (right-preconditioned) plus
+    ``aug``, a list of (z, Az) pairs. Returns (dx, A dx) minimizing
+    ||r - A dx|| over the augmented subspace. The directions are rows of
+    preallocated [K, n] blocks, so no step restacks the basis."""
+    n = r.shape[0]
+    inner_m = max(1, min(int(inner_m), n - len(aug)))  # subspace <= n
+    K = inner_m + len(aug)
+    V = torch.empty((inner_m + 1, n), dtype=r.dtype, device=r.device)
+    Z = torch.empty((K, n), dtype=r.dtype, device=r.device)
+    AZ = torch.empty((K, n), dtype=r.dtype, device=r.device)
+    rnorm = torch.linalg.vector_norm(r)
+    V[0] = r / _nz(rnorm)
+    j = 0
+    while j < inner_m:
+        Z[j] = Mop.matvec(V[j]) if Mop is not None else V[j]
+        w = A.matvec(Z[j])
+        AZ[j] = w
+        j += 1
+        Vj = V[:j]
+        for _ in range(2):  # two passes of Gram-Schmidt against the basis
+            w = w - (Vj.conj() @ w) @ Vj
+        wn = torch.linalg.vector_norm(w)
+        wn_h, rn_h = _sync_fetch(torch.stack([wn, rnorm]))
+        if float(wn_h) <= 1e-12 * float(rn_h):
+            break  # breakdown: the subspace is invariant
+        V[j] = w / wn
+    for i, (z, az) in enumerate(aug):
+        Z[j + i], AZ[j + i] = z, az
+    Z, AZ = Z[: j + len(aug)], AZ[: j + len(aug)]
+    y = _lstsq_min_norm(AZ.T, r)
+    return y @ Z, y @ AZ
+
+
+def _norm_h(v) -> float:
+    """||v|| on the host (one counted fetch)."""
+    return float(_sync_fetch(torch.linalg.vector_norm(v)))
+
+
+def _augmented_setup(A, b, x0, M):
+    b = as_tensor(b, _operator_device(A, b))
+    A = make_linear_operator(A)
+    dt = torch.promote_types(b.dtype, A.dtype)
+    if x0 is not None:
+        x0 = as_tensor(x0, b.device)
+        dt = torch.promote_types(dt, x0.dtype)
+    b = b.to(dt)
+    Mop = None if M is None else make_linear_operator(M)
+    x = torch.zeros_like(b) if x0 is None else x0.to(dt)
+    return A, b, x, Mop
+
+
+def lgmres(A, b, x0=None, tol=1e-5, atol=0.0, maxiter=1000, M=None, callback=None,
+           inner_m=30, outer_k=3):
+    """LGMRES (Baker, Jessup & Manteuffel; scipy semantics): restarted GMRES
+    whose restart space is augmented with the last ``outer_k`` corrections.
+    Converges on ||r|| <= max(atol, tol ||b||); ``callback(x)`` after every
+    outer cycle. Returns (x, info): 0 on convergence, else ``maxiter``."""
+    A, b, x, Mop = _augmented_setup(A, b, x0, M)
+    bnorm = _norm_h(b)
+    target = max(float(atol), float(tol) * (bnorm if bnorm > 0 else 1.0))
+    aug = []  # (z, Az) correction pairs, newest first
+    for _ in range(int(maxiter)):
+        r = b - A.matvec(x)
+        if _norm_h(r) <= target:
+            return x, 0
+        dx, adx = _augmented_cycle(A, Mop, r, int(inner_m), aug)
+        x = x + dx
+        if callback is not None:
+            callback(x)
+        dn = torch.linalg.vector_norm(dx)
+        if int(outer_k) > 0 and float(_sync_fetch(dn)) > 0:
+            # adx is A dx from the cycle's own images: no extra matvec
+            aug = [(dx / dn, adx / dn)] + aug[: int(outer_k) - 1]
+    return x, (0 if _norm_h(b - A.matvec(x)) <= target else int(maxiter))
+
+
+def gcrotmk(A, b, x0=None, tol=1e-5, atol=0.0, maxiter=1000, M=None, callback=None, m=20,
+            k=None, truncate="oldest"):
+    """GCROT(m, k) (Hicken & Zingg, de Sturler; scipy semantics): GMRES(m)
+    with a recycled subspace U whose images C = A U are kept orthonormal;
+    each cycle first projects the residual onto C. ``truncate`` ('oldest'
+    or 'smallest') picks the pair dropped past ``k``. Returns (x, info),
+    0 on convergence."""
+    if k is None:
+        k = m
+    if truncate not in ("oldest", "smallest"):
+        raise ValueError("truncate must be 'oldest' or 'smallest'")
+    A, b, x, Mop = _augmented_setup(A, b, x0, M)
+    bnorm = _norm_h(b)
+    target = max(float(atol), float(tol) * (bnorm if bnorm > 0 else 1.0))
+    recycled = []  # (u, c) with c = A u / ||A u||, newest last
+    for _ in range(int(maxiter)):
+        r = b - A.matvec(x)
+        # oblique projection onto the recycled image space
+        for u, c in recycled:
+            alpha = _vdot(c, r)
+            x = x + alpha * u
+            r = r - alpha * c
+        if _norm_h(r) <= target:
+            return x, 0
+        dx, adx = _augmented_cycle(A, Mop, r, int(m), list(recycled))
+        x = x + dx
+        if callback is not None:
+            callback(x)
+        # keep C orthonormal: Gram-Schmidt the new image against the kept
+        # ones, the same combination applied to u so that c == A u holds
+        unew, cnew = dx, adx
+        for u, c in recycled:
+            beta = _vdot(c, cnew)
+            cnew = cnew - beta * c
+            unew = unew - beta * u
+        an = torch.linalg.vector_norm(cnew)
+        if float(_sync_fetch(an)) > 1e-12:
+            recycled.append((unew / an, cnew / an))
+            if len(recycled) > int(k):
+                if truncate == "oldest":
+                    recycled = recycled[1:]
+                else:
+                    # 'smallest': drop the image least aligned with the
+                    # current correction (the newest pair is always kept)
+                    scores = np.abs(_sync_fetch(torch.stack([_vdot(c, adx) for _, c in
+                                                             recycled[:-1]])))
+                    drop = int(np.argmin(scores))
+                    recycled = recycled[:drop] + recycled[drop + 1:]
+    return x, (0 if _norm_h(b - A.matvec(x)) <= target else int(maxiter))

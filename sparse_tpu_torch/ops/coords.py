@@ -3,7 +3,9 @@
 Port of ``sparse_tpu/ops/coords.py``: the same vectorized formulations
 (batched binary search for row expansion, one stable key sort, a
 boundary-mask dedup) on torch tensors, so they run on the device the
-tensors live on.
+tensors live on. Sorted segments are summed by :func:`segment_sum` in one
+fixed order (the reference's ``jax.ops.segment_sum``), never by scatter
+atomics, so a repeated call gives the same bits on the card.
 """
 
 from __future__ import annotations
@@ -24,6 +26,26 @@ def expand_rows(indptr: torch.Tensor, nnz: int) -> torch.Tensor:
         indptr, pts, right=True, out_int32=indptr.dtype == torch.int32
     )
     return (rows - 1).to(indptr.dtype)
+
+
+def segment_sum(values: torch.Tensor, offsets: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Sums of the contiguous segments ``offsets[i]:offsets[i + 1]`` of
+    ``values`` along ``axis`` (0 or, for ``[B, nnz]`` values, 1), 0 for an
+    empty segment. Floating values go through ``torch.segment_reduce``,
+    which sums each segment in one order on every call; complex values sum
+    their real and imaginary parts apart. Integer sums are exact in any
+    order and take ``index_add_``."""
+    if values.is_complex():
+        return torch.view_as_complex(segment_sum(torch.view_as_real(values), offsets, axis))
+    if not values.is_floating_point():
+        seg = expand_rows(offsets, values.shape[axis])
+        shape = list(values.shape)
+        shape[axis] = offsets.shape[0] - 1
+        return torch.zeros(shape, dtype=values.dtype, device=values.device).index_add_(
+            axis, seg, values)
+    if axis:
+        offsets = offsets.expand(*values.shape[:axis], offsets.shape[0])
+    return torch.segment_reduce(values, "sum", offsets=offsets, axis=axis)
 
 
 def rows_to_indptr(sorted_rows: torch.Tensor, m: int, dtype=None) -> torch.Tensor:
@@ -69,8 +91,7 @@ def dedup_sorted(rows, cols, vals):
     nunique = host_int(is_new.sum())
     if nunique == nnz:
         return rows, cols, vals, nnz
-    seg = torch.cumsum(is_new, 0) - 1
-    uvals = torch.zeros((nunique,), dtype=vals.dtype, device=vals.device)
-    uvals.index_add_(0, seg, vals)
     first = torch.nonzero(is_new).squeeze(1)
+    ends = torch.full((1,), nnz, dtype=first.dtype, device=first.device)
+    uvals = segment_sum(vals, torch.cat([first, ends]))
     return rows[first], cols[first], uvals, nunique

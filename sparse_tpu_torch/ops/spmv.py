@@ -1,8 +1,10 @@
-"""CSR/CSC SpMV and SpMM in plain torch (``sparse_tpu/ops/spmv.py``).
+"""CSR SpMV and SpMM in plain torch (``sparse_tpu/ops/spmv.py``; CSC
+products run on a CSR form, ``csc.py``).
 
-Segment path: per-nnz products reduced by row with ``index_add_``; ELL
-path: one gather per padded-row plane plus adds. Neither is a TPU kernel
-in the reference (both are XLA gathers there), so both stay plain torch.
+Segment path: per-nnz products summed row by row in a fixed order
+(``coords.segment_sum``); ELL path: one gather per padded-row plane plus
+adds. Neither is a TPU kernel in the reference (both are XLA gathers
+there), so both stay plain torch.
 
 SELL slab path (``csr_spmv_sell`` and its batched and SpMM forms): one
 gather per plane of each plane-major ``[K, R]`` slab of the reference's
@@ -20,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from .coords import expand_rows
+from .coords import segment_sum
 
 
 def _result_dtype(a: torch.Tensor, b: torch.Tensor) -> torch.dtype:
@@ -31,12 +33,9 @@ def csr_spmv_segment(indptr, indices, data, x, m: int):
     """y = A @ x via gather + segment sum. General path, any row profile."""
     nnz = data.shape[0]
     out_dt = _result_dtype(data, x)
-    y = torch.zeros((m,), dtype=out_dt, device=x.device)
     if nnz == 0:
-        return y
-    rows = expand_rows(indptr, nnz)
-    prod = data.to(out_dt) * x[indices].to(out_dt)
-    return y.index_add_(0, rows, prod)
+        return torch.zeros((m,), dtype=out_dt, device=x.device)
+    return segment_sum(data.to(out_dt) * x[indices].to(out_dt), indptr)
 
 
 def csr_spmv_ell(ell_indices, ell_data, x):
@@ -188,24 +187,18 @@ def csr_spmv_segment_batched(indptr, indices, values, X, m: int):
     shared pattern: the batched path that needs no pack."""
     nnz = values.shape[1]
     out_dt = _result_dtype(values, X)
-    Y = torch.zeros((X.shape[0], m), dtype=out_dt, device=X.device)
     if nnz == 0:
-        return Y
-    rows = expand_rows(indptr, nnz)
-    prod = values.to(out_dt) * X[:, indices].to(out_dt)
-    return Y.index_add_(1, rows, prod)
+        return torch.zeros((X.shape[0], m), dtype=out_dt, device=X.device)
+    return segment_sum(values.to(out_dt) * X[:, indices].to(out_dt), indptr, axis=1)
 
 
 def csr_spmm_segment(indptr, indices, data, B, m: int):
     """C = A @ B with B dense [k, n]."""
     nnz = data.shape[0]
     out_dt = _result_dtype(data, B)
-    C = torch.zeros((m, B.shape[1]), dtype=out_dt, device=B.device)
     if nnz == 0:
-        return C
-    rows = expand_rows(indptr, nnz)
-    prod = data.to(out_dt)[:, None] * B[indices].to(out_dt)
-    return C.index_add_(0, rows, prod)
+        return torch.zeros((m, B.shape[1]), dtype=out_dt, device=B.device)
+    return segment_sum(data.to(out_dt)[:, None] * B[indices].to(out_dt), indptr)
 
 
 def csr_spmm_ell(ell_indices, ell_data, B):
@@ -216,13 +209,3 @@ def csr_spmm_ell(ell_indices, ell_data, B):
         acc = acc + ell_data[:, kk, None] * B[ell_indices[:, kk]]
     return acc
 
-
-def csc_spmv(indptr, indices, data, x, m: int):
-    """y = A @ x with A in CSC: gather x by column, scatter-add to rows."""
-    nnz = data.shape[0]
-    out_dt = _result_dtype(data, x)
-    y = torch.zeros((m,), dtype=out_dt, device=x.device)
-    if nnz == 0:
-        return y
-    cols = expand_rows(indptr, nnz)  # compressed axis of CSC = columns
-    return y.index_add_(0, indices, data.to(out_dt) * x[cols].to(out_dt))

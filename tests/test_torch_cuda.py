@@ -493,3 +493,70 @@ def test_onepass_takes_the_window_by_rows_per_span(m, offs, windowed):
     assert moved == ((40, 0) if windowed else (0, 40))
     xc = C.cg_dia_fused_onepass(A.data.cpu(), offs, b.cpu(), None, m, iters=40)[0]
     torch.testing.assert_close(x.cpu(), xc, rtol=1e-4, atol=1e-4)
+
+
+def _banded_nonsym(nx):
+    """chip_smoke's upwind convection-diffusion operator at nx^2, f32."""
+    import chip_smoke
+
+    diagonals, offsets, n = chip_smoke.convection_diffusion_diagonals(nx, nx)
+    return st.diags(diagonals, offsets, shape=(n, n), dtype=np.float32).tocsc().T.tocsr()
+
+
+@pytest.mark.parametrize("which", ["skewed", "banded"])
+def test_adjoint_product_repeats_bit_for_bit(which):
+    """A.T @ x and rmatvec run on the transpose's CSR through a kernel,
+    with a fixed summation order: two calls agree bit for bit."""
+    from sparse_tpu_torch.kernels import sell_spmv as S
+
+    A = st.csr_array(_skewed_csr(2**16)) if which == "skewed" else _banded_nonsym(300)
+    counter = S.sell_chunk_spmv if which == "skewed" else D.dia_spmv_packed
+    x = torch.rand(A.shape[0], device="cuda")
+    y1 = A.T @ x
+    before = counter.launches
+    y2 = A.T @ x
+    assert counter.launches == before + 1
+    assert torch.equal(y1, y2)
+    assert torch.equal(linalg.aslinearoperator(A).rmatvec(x), y1)
+    # the same product on the CPU (the kernels' plain versions)
+    Ac = st.csr_array((A.data.cpu(), A.indices.cpu(), A.indptr.cpu()), shape=A.shape, device="cpu")
+    yc = Ac.T @ x.cpu()
+    torch.testing.assert_close(y1.cpu(), yc, rtol=1e-5, atol=1e-5 * float(yc.abs().max()))
+    s = A.tocsc()  # the same matrix as CSC: its product runs on its own CSR
+    assert torch.equal(s @ x, s @ x)
+
+
+def test_segment_mode_repeats_bit_for_bit():
+    """spmv_mode 'segment' sums each row with segment_reduce: two products
+    agree bit for bit (a scatter-add would not)."""
+    st.settings.spmv_mode = "segment"
+    try:
+        A = st.csr_array(_skewed_csr(2**16))
+        x = torch.rand(A.shape[1], device="cuda")
+        X = torch.rand((A.shape[1], 3), device="cuda")
+        assert torch.equal(A @ x, A @ x)
+        assert torch.equal(A @ X, A @ X)
+    finally:
+        st.settings.spmv_mode = "auto"
+
+
+def test_duplicate_summation_repeats_bit_for_bit():
+    """A COO with every entry repeated hundreds of times: the summed CSR
+    values agree bit for bit across two conversions."""
+    rng = np.random.default_rng(0)
+    rows = rng.integers(0, 300, 300_000)
+    cols = rng.integers(0, 200, 300_000)
+    vals = rng.standard_normal(300_000).astype(np.float32)
+    a = st.coo_array((vals, (rows, cols)), shape=(300, 200)).tocsr()
+    b = st.coo_array((vals, (rows, cols)), shape=(300, 200)).tocsr()
+    assert a.nnz == b.nnz < 300_000
+    assert torch.equal(a.data, b.data)
+
+
+def test_bicg_repeats_bit_for_bit():
+    """bicg calls rmatvec every iteration: two solves give the same x."""
+    A = _banded_nonsym(200)
+    b = torch.rand(A.shape[0], device="cuda")
+    x1, i1 = linalg.bicg(A, b, tol=0.0, maxiter=150)
+    x2, i2 = linalg.bicg(A, b, tol=0.0, maxiter=150)
+    assert i1 == i2 == 150 and torch.equal(x1, x2)
