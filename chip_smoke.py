@@ -5,7 +5,7 @@
 
 Needs one CUDA card, ``nvcc`` and the repository checkout beside this file;
 exits non-zero without them, and on any failed check. Phases, in the order
-they run (1, 2a-2e, 3, 5, 6, 7, 8, 9, 10, 4):
+they run (1, 2a-2e, 3, 5, 6, 7, 8, 9, 10, 4, 11):
 
 1. card name and power limit; build the CUDA kernels (csrc/*.cu) and time it;
 2. each kernel against its plain torch version on the card: (a, b) the DIA
@@ -72,11 +72,27 @@ they run (1, 2a-2e, 3, 5, 6, 7, 8, 9, 10, 4):
    ``--segment-sweep`` both SELL kernels at six segment lengths (the
    experiment that chose ``SELL_SEGMENT``); with ``--window-sweep`` the
    windowed and the wide one-pass kernel on 2-D and 3-D Laplacians of
-   several sizes (the experiment behind ``cgcg_iteration``'s choice).
+   several sizes (the experiment behind ``cgcg_iteration``'s choice);
+11. the core sparse ops at full width, last, with every earlier phase's
+   operators freed: (a) examples/spgemm_microbenchmark.py's A @ B at
+   n = 2^22 in f64 (11 diagonals of ones): iterations/s over 10 products,
+   the peak of allocated memory, 2 host fetches a product and no other
+   sync, two products bit for bit, C exactly the closed form on sampled
+   rows, one product profiled, the library's CSR @ CSR on the same A and
+   B, and C @ x (the DIA kernel) against A @ (A @ x); (b) A @ A of
+   module.random(2^20, 2^20, 16 / 2^20, seed 7) in f32, bit for bit on a
+   repeat, (A @ A) @ x through the SELL kernel against A @ (A @ x); (c)
+   models.laplacian_2d_csr(6000) through kron and the union add, its
+   A @ x bit for bit the pde.py-built operator's, 100 iterations of
+   linalg.cg (the fused kernels); (d) on it A + A.T, A - A.T, A.multiply(A),
+   column sums, row maxima, the diagonal, sddmm (k = 8) and x @ A, timed
+   and checked, and the tropical MIS at 1000^2, held on the host as a
+   maximal independent set and equal on a repeat.
 
-Each of the six paths (3, 5, 6, 7, 8, 9) and each of phase 10's three
-operators runs with every kernel's launch counter set to 0 just before it
-and read just after; each kernel of the path must have launched. The
+Each of the six paths (3, 5, 6, 7, 8, 9), each of phase 10's three
+operators and phase 11 runs with every kernel's launch counter set to 0
+just before it and read just after; each kernel of the path must have
+launched. The
 kernels line reports each kernel's launches summed over the paths that
 run it.
 
@@ -86,6 +102,7 @@ power limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -1278,19 +1295,20 @@ def skewed_nonsym_csr(m: int, seed: int = 7):
 
 
 class fetches_only:
-    """Every host sync an error, except inside the solvers' counted fetches
-    (``linalg._sync_fetch``): the error mode is armed as each fetch returns,
+    """Every host sync an error, except inside the counted fetches
+    (``hostsync.fetch``): the error mode is armed as each fetch returns,
     so it covers every iteration and restart cycle a loop runs after its
-    first fetch. A no-op off the card."""
+    first fetch; with ``from_start`` it is armed on entry as well. A no-op
+    off the card."""
 
-    def __init__(self, dev):
-        self.dev = dev
+    def __init__(self, dev, from_start: bool = False):
+        self.dev, self.from_start = dev, from_start
 
     def __enter__(self):
         import torch
-        from sparse_tpu_torch import linalg
+        from sparse_tpu_torch import hostsync
 
-        self.linalg, self.real = linalg, linalg._sync_fetch
+        self.hostsync, self.real = hostsync, hostsync.fetch
         if self.dev == "cpu":
             return self
         real = self.real
@@ -1302,7 +1320,9 @@ class fetches_only:
             finally:
                 torch.cuda.set_sync_debug_mode("error")
 
-        linalg._sync_fetch = fetch
+        hostsync.fetch = fetch
+        if self.from_start:
+            torch.cuda.set_sync_debug_mode("error")
         return self
 
     def __exit__(self, *exc):
@@ -1310,7 +1330,7 @@ class fetches_only:
 
         if self.dev != "cpu":
             torch.cuda.set_sync_debug_mode("default")
-        self.linalg._sync_fetch = self.real
+        self.hostsync.fetch = self.real
         return False
 
 
@@ -1320,19 +1340,19 @@ def timed_solve(dev, fn, counter):
     (warm output, timed output, seconds, HOST_SYNCS, launches of
     ``counter`` in the timed run)."""
     import torch
-    from sparse_tpu_torch import linalg
+    from sparse_tpu_torch import hostsync
 
     sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
     warm = fn()
     sync()
     before = counter.launches
-    linalg.HOST_SYNCS = 0
+    hostsync.HOST_SYNCS = 0
     with fetches_only(dev):
         t0 = time.perf_counter()
         out = fn()
         sync()
         secs = time.perf_counter() - t0
-    return warm, out, secs, linalg.HOST_SYNCS, counter.launches - before
+    return warm, out, secs, hostsync.HOST_SYNCS, counter.launches - before
 
 
 def solver_line(name, its, secs, syncs, launches, rel, extra=""):
@@ -1565,7 +1585,7 @@ def augmented_f64(dev, grid: int):
     allocated memory, and the true residual, which must fall."""
     import torch
     import sparse_tpu_torch as sparse
-    from sparse_tpu_torch import linalg
+    from sparse_tpu_torch import hostsync, linalg
 
     sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
     diagonals, offsets, n = laplacian_diagonals(grid + 2, grid + 2, dtype=np.float64)
@@ -1579,7 +1599,7 @@ def augmented_f64(dev, grid: int):
         A @ b  # layouts
         if dev == "cuda":
             torch.cuda.reset_peak_memory_stats()
-        linalg.HOST_SYNCS = 0
+        hostsync.HOST_SYNCS = 0
         sync()
         t0 = time.perf_counter()
         x, info = fn()
@@ -1588,9 +1608,9 @@ def augmented_f64(dev, grid: int):
         peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
         rel = float(torch.linalg.vector_norm(b - A @ x)) / bnorm
         out[name] = dict(cycles=3, s=secs, s_per_cycle=secs / 3, peak_bytes=peak, info=info,
-                         rel_residual=rel, host_syncs=linalg.HOST_SYNCS)
+                         rel_residual=rel, host_syncs=hostsync.HOST_SYNCS)
         print(f"  {name} f64 at {grid}^2: 3 outer cycles in {secs:.4f} s ({secs / 3:.4f} s a cycle), "
-              f"peak allocated {peak / 2**30:.2f} GiB, HOST_SYNCS {linalg.HOST_SYNCS}, info {info}, "
+              f"peak allocated {peak / 2**30:.2f} GiB, HOST_SYNCS {hostsync.HOST_SYNCS}, info {info}, "
               f"||b - A x|| / ||b|| = {rel:.6g}", flush=True)
         check(np.isfinite(rel) and rel < 1.0, f"{name}: 3 cycles lower the residual ({rel:.4g})")
         del x
@@ -1599,12 +1619,12 @@ def augmented_f64(dev, grid: int):
 
 
 def scatter_repeats(A, x) -> dict:
-    """How many entries differ between two runs of the scatter-adds the
-    port no longer sums with (a record, not a check): A.T @ x reduced by
-    ``index_add_`` into the columns (the column-split product CSC arrays
-    and adjoint products used before), and the ``index_put_(accumulate=
-    True)`` of the conversions (``ops/conv.py`` dense builds, ``dia.py``
-    plane builds), here a COO with every entry repeated 100 times."""
+    """How many entries differ between two runs of the column
+    ``index_add_`` of A.T @ x that the port no longer sums with (the
+    column-split product CSC arrays and adjoint products used before; a
+    record, not a check), and between two runs of ``coo_to_dense`` on a
+    COO with every entry repeated 100 times, which now sums the sorted
+    duplicates in order (it used ``index_put_(accumulate=True)``)."""
     import torch
     from sparse_tpu_torch.ops.conv import coo_to_dense
     from sparse_tpu_torch.ops.coords import expand_rows
@@ -1622,7 +1642,7 @@ def scatter_repeats(A, x) -> dict:
     v = torch.randn((100 * n,), device=x.device, generator=g)
     out = {}
     for name, fn in (("index_add_ (A.T @ x by columns)", col_sum),
-                     ("index_put_ accumulate (coo_to_dense, 100 duplicates an entry)",
+                     ("coo_to_dense (sorted duplicate sums, 100 duplicates an entry)",
                       lambda: coo_to_dense(r, c, v, (64, 64)))):
         y1, y2 = fn(), fn()
         out[name] = int((y1 != y2).sum())
@@ -1648,7 +1668,7 @@ def krylov_general(dev, m: int, small_m: int, ls_iters: int = 300, ls_m: int = 2
     1% of it."""
     import torch
     import sparse_tpu_torch as sparse
-    from sparse_tpu_torch import linalg
+    from sparse_tpu_torch import hostsync, linalg
     from sparse_tpu_torch.kernels import sell_spmv as S
 
     sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
@@ -1716,7 +1736,7 @@ def krylov_general(dev, m: int, small_m: int, ls_iters: int = 300, ls_m: int = 2
                 if prec == "f64" and name in ("lsqr", "lsmr"):
                     continue
                 sync()
-                linalg.HOST_SYNCS = 0
+                hostsync.HOST_SYNCS = 0
                 before = S.sell_chunk_spmv.launches
                 t0 = time.perf_counter()
                 res = fn()
@@ -1727,7 +1747,7 @@ def krylov_general(dev, m: int, small_m: int, ls_iters: int = 300, ls_m: int = 2
                 if prec == "f64":
                     floor *= float(np.finfo(np.float64).eps / np.finfo(np.float32).eps)
                 key = name if prec == "f32" else name + "_f64"
-                solvers[key] = solver_line(name, its, secs, linalg.HOST_SYNCS,
+                solvers[key] = solver_line(name, its, secs, hostsync.HOST_SYNCS,
                                            S.sell_chunk_spmv.launches - before, rel,
                                            f"; {prec}, floor {floor:.3g}")
                 solvers[key].update(floor=floor, dtype=prec)
@@ -1774,6 +1794,345 @@ def krylov_general(dev, m: int, small_m: int, ls_iters: int = 300, ls_m: int = 2
         del A, b
     finally:
         sparse.settings.spmv_mode = prev
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the core sparse ops at full width
+# ---------------------------------------------------------------------------
+def banded_product_closed_form(i, j, n: int, h: int):
+    """C[i, j] of A @ A, A the n x n matrix of ones on the 2h + 1 diagonals
+    -h..h: #{k : |i - k| <= h, |k - j| <= h, 0 <= k < n}."""
+    lo = np.maximum(np.maximum(i, j) - h, 0)
+    hi = np.minimum(np.minimum(i, j) + h, n - 1)
+    return np.maximum(hi - lo + 1, 0).astype(np.float64)
+
+
+def rows_of(C, rows):
+    """(row ids, columns, values) of the given rows of a CSR, on the host."""
+    import torch
+
+    ptr = C.indptr.cpu().numpy().astype(np.int64)
+    starts, ends = ptr[rows], ptr[rows + 1]
+    pos = np.concatenate([np.arange(a, b) for a, b in zip(starts, ends)])
+    pos_t = torch.as_tensor(pos, device=C.device)
+    return (np.repeat(rows, ends - starts), C.indices[pos_t].cpu().numpy().astype(np.int64),
+            C.data[pos_t].cpu().numpy())
+
+
+def same_csr(C1, C2) -> bool:
+    import torch
+
+    return all(bool(torch.equal(a, b)) for a, b in ((C1.indptr, C2.indptr),
+                                                     (C1.indices, C2.indices), (C1.data, C2.data)))
+
+
+def timed(dev, fn):
+    """(result, seconds) of ``fn()`` on the host clock, the card drained
+    before and after."""
+    import torch
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    res = fn()
+    sync()
+    return res, time.perf_counter() - t0
+
+
+def random_build(dev, m: int, per_row: int = 16, top: int = 4):
+    """(A, seconds, the ``top`` entries of its cProfile by own time) of
+    module.random(m, m, per_row / m, csr, seed 7, f32) on ``dev``: where
+    the host spends phase 11b's build."""
+    import cProfile
+    import pstats
+
+    import sparse_tpu_torch as sparse
+
+    prof = cProfile.Profile()
+    A, secs = timed(dev, lambda: prof.runcall(
+        sparse.random, m, m, density=per_row / m, format="csr", random_state=7,
+        dtype=np.float32, device=dev))
+    stats = pstats.Stats(prof).stats  # (file, line, name) -> (cc, nc, own, cumulative, callers)
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return A, secs, [(f"{Path(f).name}:{line}:{name}" if line else name, v[2])
+                     for (f, line, name), v in rows]
+
+
+def spgemm_microbench(dev, n: int, w: int, reps: int):
+    """Phase 11a: examples/spgemm_microbenchmark.py's C = A @ B at n rows in
+    f64 (A the ones on w diagonals, B = A.copy()): one warm product, then
+    ``reps`` timed; the peak of allocated memory and the counted host
+    fetches of one product (every other sync an error); two products
+    equal bit for bit; one product under torch.profiler (busy share and
+    its kernels); C exactly the closed form on sampled rows; the
+    library's CSR @ CSR on the same A and B; C @ x through the DIA kernel
+    against A @ (A @ x) in f64."""
+    import torch
+    import sparse_tpu_torch as sparse
+    from sparse_tpu_torch import hostsync
+
+    h = w // 2
+    print(f"phase 11a: spgemm_microbenchmark's A @ B at n = {n}, {w} nonzeros a row (float64)",
+          flush=True)
+    A, build_s = timed(dev, lambda: sparse.diags([1] * w, [x - h for x in range(w)], shape=(n, n),
+                                                 format="csr", dtype=np.float64, device=dev))
+    B = A.copy()
+    check(A.nnz == w * n - h * (h + 1), f"A: {A.nnz} nonzeros = w n - h (h + 1), built in "
+          f"{build_s:.3f} s")
+    total = int((A.indptr[1:] - A.indptr[:-1])[A.indices.long()].sum())
+    C, warm_s = timed(dev, lambda: A @ B)
+    del C
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if dev == "cuda" else 0
+    hostsync.HOST_SYNCS = 0
+    with fetches_only(dev, from_start=True):
+        C1 = A @ B
+    syncs = hostsync.HOST_SYNCS
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    check(syncs == 2, f"one product makes {syncs} host fetches (the expansion total and the "
+          f"unique count), and no other sync")
+    C2 = A @ B
+    check(same_csr(C1, C2), "two products equal bit for bit (indptr, indices, data)")
+    del C2
+    nnz_c = (2 * w - 1) * n - 2 * sum(range(2 * h + 1))
+    check(C1.nnz == nnz_c, f"C: {C1.nnz} nonzeros = (2w - 1) n - 2 h (2h + 1)")
+    secs = []
+    for _ in range(reps):
+        C1, s = timed(dev, lambda: A @ B)
+        secs.append(s)
+    rng = np.random.default_rng(21)
+    rows = np.unique(np.concatenate([rng.choice(n, min(4096, n), replace=False),
+                                     [0, 1, h, n - 2, n - 1]]))
+    ri, cj, v = rows_of(C1, rows)
+    want = banded_product_closed_form(ri, cj, n, h)
+    check(bool(np.array_equal(v, want)) and bool(np.all(want > 0)),
+          f"C exactly the closed form on {len(rows)} sampled rows ({len(v)} entries)")
+    busy = device_share("one A @ B product", lambda: A @ B) if dev == "cuda" else None
+    x = torch.tensor(rng.standard_normal(n), device=dev)
+    y = C1 @ x
+    z = A @ (A @ x)
+    mag = (C1 @ x.abs()).double()
+    err = float(((y - z).abs() / mag.clamp_min(1e-300)).max())
+    kbound = 2 * (2 * w - 1) * float(np.finfo(np.float64).eps)
+    check(err <= kbound, f"C @ x (DIA kernel) vs A @ (A @ x) in f64: max |diff| / (|C| |x|) = "
+          f"{err:.3g} <= 2 (2w - 1) eps = {kbound:.3g}")
+    del x, y, z, mag, C1
+    # the library yardstick: cuSPARSE's SpGEMM behind torch's sparse CSR
+    Ac = torch.sparse_csr_tensor(A.indptr.long(), A.indices.long(), A.data, A.shape)
+    Bc = torch.sparse_csr_tensor(B.indptr.long(), B.indices.long(), B.data, B.shape)
+    Cl, lib_warm = timed(dev, lambda: Ac @ Bc)
+    lib_nnz = int(Cl._nnz())
+    del Cl
+    lib = []
+    for _ in range(3):
+        Cl, s = timed(dev, lambda: Ac @ Bc)
+        lib.append(s)
+        del Cl
+    check(lib_nnz == nnz_c, f"the library's product has the same {lib_nnz} nonzeros")
+    del Ac, Bc, A, B
+    out = dict(n=n, w=w, nnz_a=w * n - h * (h + 1), expansion=total, nnz_c=nnz_c,
+               build_s=build_s, warm_s=warm_s, s_per_product=float(np.mean(secs)),
+               iters_per_s=reps / float(np.sum(secs)), peak_bytes=peak - base,
+               peak_allocated=peak, host_syncs=syncs, busy_share=busy,
+               library_s=float(np.mean(lib)), library_warm_s=lib_warm)
+    print(f"  A @ B at n = {n}: {out['iters_per_s']:.3f} iterations / s ({out['s_per_product']:.4f} "
+          f"s a product, mean of {reps}; warm {warm_s:.3f} s); expansion {total} entries, C "
+          f"{nnz_c} nonzeros; peak allocated {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} "
+          f"GiB over the operands); host fetches a product {syncs}; library "
+          f"(torch.sparse_csr_tensor @ torch.sparse_csr_tensor) {out['library_s']:.4f} s a "
+          f"product (warm {lib_warm:.3f} s)", flush=True)
+    return out
+
+
+def spgemm_random(dev, m: int, per_row: int = 16):
+    """Phase 11b: module.random(m, m, density per_row / m, csr, seed 7, f32)
+    @ itself, twice bit for bit; then (A @ A) @ x through sell_chunk_spmv
+    (spmv_mode 'sell') against A @ (A @ x), within the deterministic
+    summation bound k u sum |terms| (k the longest chain of additions)."""
+    import torch
+    import sparse_tpu_torch as sparse
+
+    print(f"phase 11b: module.random({m}, {m}, density={per_row}/{m}) @ itself (float32)",
+          flush=True)
+    A, build_s, prof = random_build(dev, m, per_row)
+    check(A.nnz == per_row * m, f"A: {A.nnz} nonzeros, built in {build_s:.2f} s (host draw "
+          f"included); own time by cProfile: " + ", ".join(f"{k} {v:.3f} s" for k, v in prof))
+    lens = A.indptr[1:] - A.indptr[:-1]
+    total = int(lens[A.indices.long()].sum())
+    C1, warm_s = timed(dev, lambda: A @ A)
+    C2, prod_s = timed(dev, lambda: A @ A)
+    check(same_csr(C1, C2), f"A @ A twice bit for bit (expansion {total}, C {C1.nnz} nonzeros, "
+          f"{prod_s:.4f} s a product)")
+    del C2
+    prev = sparse.settings.spmv_mode
+    sparse.settings.spmv_mode = "sell"
+    try:
+        x = torch.tensor(np.random.default_rng(22).standard_normal(m).astype(np.float32),
+                         device=dev)
+        y = C1 @ x
+        z = A @ (A @ x)
+        mag = (C1 @ x.abs()).double()
+    finally:
+        sparse.settings.spmv_mode = prev
+    u = float(np.finfo(np.float32).eps) / 2
+    ka = int(lens.max())
+    kc = int((C1.indptr[1:] - C1.indptr[:-1]).max())
+    # C's entries carry up to ka terms, C @ x adds kc, A @ (A @ x) 2 ka
+    k = kc + 3 * ka + 2
+    err = ((y.double() - z.double()).abs() / mag.clamp_min(1e-30)).max().item()
+    check(err <= k * u, f"(A @ A) @ x (sell_chunk_spmv) vs A @ (A @ x): max |diff| / (|C| |x|) "
+          f"= {err:.3g} <= k u = {k * u:.3g} (k = {k}); {err / (np.sqrt(k) * u):.2f} sqrt(k) u")
+    del x, y, z, mag, C1, A
+    return dict(m=m, nnz_a=per_row * m, expansion=total, build_s=build_s, build_profile=prof,
+                warm_s=warm_s,
+                s_per_product=prod_s, rel_err=err, k=k)
+
+
+def unit_laplacian_diagonals(n: int, dtype=np.float32):
+    """pde.py's five diagonals with the stencil scaled to (4, -1): the
+    n^2 Laplacian that kron(l1, I) + kron(I, l1) builds."""
+    N = n * n
+    side = np.full(N - 1, -1.0, dtype=dtype)
+    side[n - 1::n] = 0.0
+    far = np.full(N - n, -1.0, dtype=dtype)
+    return [far, side, np.full(N, 4.0, dtype=dtype), side, far], [-n, -1, 0, 1, n]
+
+
+def laplacian_kron(dev, grid: int, iters: int):
+    """Phase 11c: models.poisson.laplacian_2d_csr(grid) on the card (kron,
+    then the union add), its A @ x bit for bit the product of the operator
+    built as pde.py builds it, and ``iters`` iterations of linalg.cg on it
+    (the fused kernels A and B)."""
+    import torch
+    import sparse_tpu_torch as sparse
+    from sparse_tpu_torch import linalg
+    from sparse_tpu_torch.models import laplacian_2d_csr
+
+    print(f"phase 11c: laplacian_2d_csr({grid}) through kron and the union add (float32)",
+          flush=True)
+    L, build_s = timed(dev, lambda: laplacian_2d_csr(grid, np.float32, device=dev))
+    N = grid * grid
+    check(L.nnz == 5 * N - 4 * grid, f"{L}: 5 N - 4 grid nonzeros, built in {build_s:.3f} s")
+    diagonals, offsets = unit_laplacian_diagonals(grid)
+    P = sparse.diags(diagonals, offsets, shape=(N, N), dtype=np.float32, device=dev).tocsc().T
+    P = P.tocsr()
+    x = torch.tensor(np.random.default_rng(23).standard_normal(N).astype(np.float32), device=dev)
+    check(bool(torch.equal(L @ x, P @ x)), "L @ x equals the pde.py-built operator's, bit for bit")
+    del P
+    b = torch.ones((N,), dtype=torch.float32, device=dev)
+    (xs, its), cg_s = timed(dev, lambda: linalg.cg(L, b, maxiter=iters, conv_test_iters=10**9))
+    Lx = (L @ xs).double()
+    rel = float(torch.linalg.vector_norm(b.double() - Lx)) / float(np.sqrt(N))
+    # CG lowers phi(x) = x.Ax / 2 - b.x from phi(0) = 0 (the residual norm need not fall)
+    phi = float(0.5 * torch.dot(xs.double(), Lx) - torch.dot(b.double(), xs.double()))
+    check(its == iters and bool(torch.isfinite(xs).all()) and phi < 0,
+          f"cg: {its} iterations in {cg_s:.4f} s ({its / cg_s:.2f} iters/s), phi(x) = {phi:.6g} "
+          f"< 0, ||b - A x|| / ||b|| = {rel:.4g}")
+    return L, dict(grid=grid, nnz=L.nnz, build_s=build_s, cg_iters=its, cg_s=cg_s,
+                   cg_iters_per_s=its / cg_s, phi=phi, rel_residual=rel)
+
+
+def elementwise_ops(dev, A, mis_grid: int, k: int = 8):
+    """Phase 11d: on phase 11c's matrix, A + A.T, A - A.T (all zero after
+    eliminate_zeros), A.multiply(A), the column sums, the row maxima, the
+    diagonal, A.sddmm(C, D) with C, D of width k, and x @ A twice bit for
+    bit, each timed; then mis_tropical(k=1, seed=0) on the mis_grid^2
+    Laplacian, checked on the host as a maximal independent set and equal
+    on a repeat."""
+    import torch
+    import sparse_tpu_torch as sparse
+    from sparse_tpu_torch import hostsync
+    from sparse_tpu_torch.models import laplacian_2d_csr
+
+    N = A.shape[0]
+    print(f"phase 11d: elementwise ops on the {N}-row Laplacian (float32)", flush=True)
+    out = {}
+
+    def op(name, fn, nnz=None):
+        res, secs = timed(dev, fn)
+        out[name] = dict(s=secs)
+        if nnz is not None:
+            out[name]["nnz"] = nnz(res)
+        print(f"  {name}: {secs:.4f} s" + ("" if nnz is None else f", nnz {out[name]['nnz']}"),
+              flush=True)
+        return res
+
+    S = op("A + A.T", lambda: A + A.T, lambda r: r.nnz)
+    check(S.nnz == A.nnz and bool(torch.equal(S.data, 2 * A.data)), "A + A.T = 2 A (symmetric)")
+    del S
+
+    def diff():
+        D = A - A.T
+        D.eliminate_zeros()
+        return D
+
+    check(op("A - A.T, eliminate_zeros", diff, lambda r: r.nnz).nnz == 0, "A - A.T is all zero")
+    M = op("A.multiply(A)", lambda: A.multiply(A), lambda r: r.nnz)
+    check(M.nnz == A.nnz and bool(torch.equal(M.data, A.data * A.data)), "A.multiply(A) = A^2 "
+          "entrywise")
+    del M
+    ones = torch.ones((N,), dtype=A.dtype, device=dev)
+    s0 = op("A.sum(axis=0)", lambda: A.sum(axis=0))
+    check(bool(torch.equal(s0, A @ ones)), "column sums equal A @ ones (symmetric, integers)")
+    mx = op("A.max(axis=1)", lambda: A.max(axis=1))
+    dg = op("A.diagonal()", lambda: A.diagonal())
+    check(bool((mx == 4).all()) and bool((dg == 4).all()), "row maxima and the diagonal are 4")
+    del s0, mx, dg
+    g = torch.Generator(device=dev).manual_seed(24)
+    C = torch.randn((N, k), device=dev, generator=g)
+    D = torch.randn((k, N), device=dev, generator=g)
+    R = op(f"A.sddmm(C, D), k = {k}", lambda: A.sddmm(C, D), lambda r: r.nnz)
+    pos = np.random.default_rng(25).choice(A.nnz, 4096, replace=False)
+    post = torch.as_tensor(pos, device=dev)
+    rows = torch.searchsorted(A.indptr.long(), post, right=True) - 1
+    cols = A.indices[post].long()
+    Ch, Dh = C[rows].double().cpu().numpy(), D[:, cols].double().cpu().numpy()
+    a = A.data[post].double().cpu().numpy()
+    want = a * np.einsum("ek,ke->e", Ch, Dh)
+    mag = np.abs(a) * np.einsum("ek,ke->e", np.abs(Ch), np.abs(Dh))
+    err = np.abs(R.data[post].double().cpu().numpy() - want)
+    check(bool(np.all(err <= (k + 2) * np.finfo(np.float32).eps * mag)),
+          f"sddmm on {len(pos)} sampled nonzeros vs f64 (bound (k + 2) eps |a| sum |c d|)")
+    del R, C, D
+    x = torch.tensor(np.random.default_rng(26).standard_normal(N).astype(np.float32), device=dev)
+    y1 = op("x @ A", lambda: x @ A)
+    y2 = x @ A
+    check(bool(torch.equal(y1, y2)) and bool(torch.equal(y1, A @ x)),
+          "x @ A twice bit for bit, and equal to A @ x (A symmetric)")
+    del y1, y2, x
+    L = laplacian_2d_csr(mis_grid, np.float32, device=dev)
+    hostsync.HOST_SYNCS = 0
+    f1 = op(f"mis_tropical(k=1, seed=0) at {mis_grid}^2", lambda: L.mis_tropical(k=1, seed=0))
+    out["mis_host_fetches"] = hostsync.HOST_SYNCS
+    f2 = L.mis_tropical(k=1, seed=0)
+    check(bool(torch.equal(f1, f2)), "the MIS flags equal on a repeat")
+    flags = f1.cpu().numpy()
+    ptr = L.indptr.cpu().numpy().astype(np.int64)
+    nbr = L.indices.cpu().numpy().astype(np.int64)
+    row = np.repeat(np.arange(L.shape[0]), np.diff(ptr))
+    off = nbr != row
+    member = flags == 2
+    adjacent = member[row[off]] & member[nbr[off]]
+    covered = np.zeros(L.shape[0], dtype=bool)
+    covered[row[off][member[nbr[off]]]] = True
+    check(bool(np.all((flags == 0) | member)) and not adjacent.any()
+          and bool(np.all(covered[~member])),
+          f"a maximal independent set: {int(member.sum())} members, none adjacent, every other "
+          f"node next to one ({out['mis_host_fetches']} host fetches)")
+    out["mis_members"] = int(member.sum())
+    return out
+
+
+def core_ops(dev, n_mb: int = 2**22, w: int = 11, reps: int = 10, m_rand: int = 2**20,
+             grid: int = 6000, cg_iters: int = 100, mis_grid: int = 1000):
+    """Phase 11 (a)-(d)."""
+    out = {"spgemm_microbench": spgemm_microbench(dev, n_mb, w, reps),
+           "spgemm_random": spgemm_random(dev, m_rand)}
+    L, out["laplacian_kron"] = laplacian_kron(dev, grid, cg_iters)
+    out["elementwise"] = elementwise_ops(dev, L, mis_grid)
     return out
 
 
@@ -2290,7 +2649,7 @@ def run(dev: str = "cuda", grid: int = 6000, small_grid: int = 1000, skew_m: int
     return dict(card=card, name=name, grid=grid, A=A, out=out, out_gen=out_gen, out_b=out_b, A_gen=A_gen,
                 prep=prep, bc=bc, launches=launches, errs=errs, cg_state=cg_state,
                 cgcg_state=cgcg_state, wide_state=wide_state, out_f=out_f, out_s=out_s,
-                out_w=out_w, out_k=out_k)
+                out_w=out_w, out_k=out_k, drive=drive)
 
 
 _SOURCES = {
@@ -2355,20 +2714,6 @@ def main() -> int:
     res["out_f"]["busy_share"] = device_share(
         f"20 flagship steps at {grid}^2", lambda: cg_dia(fstep, *fstate, iters=20))
     del fstate
-    kernels = []
-    for name, r in t.items():
-        lib = r["library_ms"]
-        print(f"  kernel {name}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-              f"library_ms={'null' if lib is None else f'{lib:.4f}'} "
-              f"launches={res['launches'][name]}", flush=True)
-        src, rep = _SOURCES[name]
-        kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=rep,
-            launches=res["launches"][name], max_abs_err=res["errs"][name],
-            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=lib,
-        ))
     o = res["out"]
     it_ms = o["cg_s"] / o["cg_iters"] * 1e3
     print(f"  CG at {grid}^2: {o['cg_iters'] / o['cg_s']:.2f} iters/s ({it_ms:.4f} ms per "
@@ -2404,6 +2749,28 @@ def main() -> int:
         ("gmres", lambda: linalg.gmres(Al, bl, tol=0.0, restart=20, maxiter=1)),
         ("qmr", lambda: linalg.qmr(Al, bl, tol=0.0, maxiter=20, conv_test_iters=10**9)),
         ("lsqr", lambda: linalg.lsqr(Al, bl, atol=0.0, btol=0.0, conlim=0.0, iter_lim=20)))}
+    # phase 11 last, on a card freed of every earlier phase's operators
+    del Al, bl, bg, Bb, xg, A_gen, bc
+    for key in ("A", "A_gen", "prep", "bc", "cg_state"):
+        res.pop(key)
+    gc.collect()
+    torch.cuda.empty_cache()
+    core = res["drive"]("core ops", ("dia_spmv_packed", "cg_kernel_a", "cg_kernel_b",
+                                     "sell_chunk_spmv"), core_ops, "cuda")
+    kernels = []
+    for name, r in t.items():
+        lib = r["library_ms"]
+        print(f"  kernel {name}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"library_ms={'null' if lib is None else f'{lib:.4f}'} "
+              f"launches={res['launches'][name]}", flush=True)
+        src, rep = _SOURCES[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=rep,
+            launches=res["launches"][name], max_abs_err=res["errs"][name],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=lib,
+        ))
     g["a_at_x_ms"] = t["sell_chunk_spmv"].pop("a_at_x_ms")
     g["gather"] = t["sell_chunk_spmv"].pop("gather")
     bo["gather"] = t["sell_chunk_spmv_batched"].pop("gather")
@@ -2412,7 +2779,7 @@ def main() -> int:
     print(json.dumps({"main_path": o, "general_path": g, "batched_path": bo,
                       "flagship_step": res["out_f"], "fused_sweep": sw,
                       "wide_band_path": res["out_w"], "onepass": t["cgcg_kernel"].pop("onepass"),
-                      "krylov": res["out_k"]}),
+                      "krylov": res["out_k"], "core_ops": core}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(res["card"], flush=True)

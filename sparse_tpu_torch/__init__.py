@@ -22,9 +22,54 @@ from .csc import csc_array
 from .csr import csr_array
 from .dia import dia_array
 from .interop import from_numpy_parts
-from .module import diags, eye, identity, spdiags
+from .module import (
+    SparseEfficiencyWarning,
+    SparseWarning,
+    block_array,
+    block_diag,
+    bmat,
+    diags,
+    diags_array,
+    expand_dims,
+    eye,
+    eye_array,
+    find,
+    get_index_dtype,
+    hstack,
+    identity,
+    is_sparse_matrix,
+    issparse,
+    isspmatrix,
+    isspmatrix_bsr,
+    isspmatrix_coo,
+    isspmatrix_csc,
+    isspmatrix_csr,
+    isspmatrix_dia,
+    isspmatrix_dok,
+    isspmatrix_lil,
+    kron,
+    kronsum,
+    load_npz,
+    permute_dims,
+    rand,
+    random,
+    random_array,
+    safely_cast_index_arrays,
+    save_npz,
+    spdiags,
+    swapaxes,
+    tril,
+    triu,
+    vstack,
+)
 
 __all__ = [
-    "coo_array", "csc_array", "csr_array", "dia_array", "diags", "eye",
-    "from_numpy_parts", "identity", "io", "linalg", "settings", "spdiags",
+    "SparseEfficiencyWarning", "SparseWarning", "block_array", "block_diag", "bmat",
+    "coo_array", "csc_array", "csr_array", "dia_array", "diags", "diags_array", "expand_dims",
+    "eye", "eye_array", "find", "from_numpy_parts", "get_index_dtype", "hstack", "identity",
+    "io", "is_sparse_matrix", "issparse", "isspmatrix", "isspmatrix_bsr", "isspmatrix_coo",
+    "isspmatrix_csc", "isspmatrix_csr", "isspmatrix_dia", "isspmatrix_dok", "isspmatrix_lil",
+    "kron", "kronsum", "linalg", "load_npz", "permute_dims", "rand", "random", "random_array",
+    "safely_cast_index_arrays", "save_npz", "settings", "spdiags", "swapaxes", "tril", "triu",
+    "vstack",
 ]

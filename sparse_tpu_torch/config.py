@@ -1,8 +1,7 @@
 """Package settings for the PyTorch port (``sparse_tpu/config.py``'s subset).
 
-Only the settings the main path reads (build -> ``A @ x`` -> ``linalg.cg``)
-are carried over; each is overridable from the environment under a
-``SPARSE_TPU_TORCH_*`` name.
+Only the settings the ported paths read are carried over; each is
+overridable from the environment under a ``SPARSE_TPU_TORCH_*`` name.
 
 ``device`` is the default device of every entry point that creates data
 (constructors, ``io.mmread``, ``interop.from_numpy_parts``). It is

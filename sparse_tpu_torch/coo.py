@@ -109,6 +109,65 @@ class coo_array(SparseArray):
     def dot(self, other):
         return self.tocsr().dot(other)
 
+    def _rdot(self, other):
+        return self.tocsr()._rdot(other)
+
+    def tensordot(self, other, axes=2):
+        """np.tensordot for 2-D operands: one shared axis (a transposed
+        product) or both axes (a full contraction to a scalar)."""
+        ndim_b = getattr(other, "ndim", np.ndim(other))
+        if isinstance(axes, (int, np.integer)):
+            k = int(axes)
+            a_axes, b_axes = tuple(range(self.ndim - k, self.ndim)), tuple(range(k))
+        else:
+            a_axes, b_axes = axes
+            a_axes = (int(a_axes),) if isinstance(a_axes, (int, np.integer)) else a_axes
+            b_axes = (int(b_axes),) if isinstance(b_axes, (int, np.integer)) else b_axes
+            for ax, nd, side in (*((ax, self.ndim, "a") for ax in a_axes),
+                                 *((ax, ndim_b, "b") for ax in b_axes)):
+                if not -nd <= int(ax) < nd:
+                    raise ValueError(f"axes value {ax} out of range for {side} (ndim {nd})")
+            a_axes = tuple(int(ax) % self.ndim for ax in a_axes)
+            b_axes = tuple(int(ax) % ndim_b for ax in b_axes)
+        if len(a_axes) != len(b_axes):
+            raise ValueError("axes lists must have the same length")
+
+        def flipped(b):
+            return b.transpose() if isinstance(b, SparseArray) else as_tensor(b, self.device).T
+
+        if len(a_axes) == 1:
+            a = self if a_axes[0] == self.ndim - 1 else self.transpose()
+            b = flipped(other) if ndim_b == 2 and b_axes[0] == 1 else other
+            return a.dot(b)
+        if len(a_axes) == 2 and ndim_b == 2:
+            # full contraction: sum_ij A[i, j] * B'[i, j]
+            b = flipped(other) if a_axes[0] != b_axes[0] else other
+            b = b.toarray() if isinstance(b, SparseArray) else as_tensor(b, self.device)
+            if tuple(b.shape) != tuple(self.shape):
+                raise ValueError(f"shape mismatch in tensordot: {self.shape} vs {tuple(b.shape)}")
+            return self.multiply(b).sum()
+        raise NotImplementedError(
+            "tensordot on 2-D sparse arrays supports 1- or 2-axis contractions")
+
+    def __add__(self, other):
+        return self.tocsr() + other
+
+    def __mul__(self, other):
+        if np.isscalar(other) or getattr(other, "ndim", 1) == 0:
+            return self._with_data(self.data * other)
+        return self.tocsr() * other
+
+    def multiply(self, other):
+        return self.tocsr().multiply(other)
+
+    def sum(self, axis=None):
+        if axis is None:
+            return self.data.sum()
+        return self.tocsr().sum(axis=axis)
+
+    def diagonal(self, k=0):
+        return self.tocsr().diagonal(k=k)
+
     def __str__(self):
         return (
             f"<{self.shape[0]}x{self.shape[1]} COO array, nnz={self.nnz},"

@@ -9,12 +9,15 @@ card, in an order that changes from run to run."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import plan_cache
 from .base import SparseArray
 from .ops import conv
 from .ops.coords import expand_rows
+from .ops.elementwise import csr_diagonal, csr_sum
+from .ops.sddmm import csc_sddmm
 from .utils import as_tensor, host_int, resolve_device
 
 
@@ -79,6 +82,47 @@ class csc_array(SparseArray):
         if isinstance(other, SparseArray):
             return self.tocsr().dot(other)
         return plan_cache.get(self, "csr", self.tocsr).dot(other)
+
+    def matvec(self, x):
+        return self.dot(x)
+
+    def _rdot(self, other):
+        """B @ A = (A^T B^T)^T on A^T, the CSR that shares these buffers
+        (plan-cached; its row-wise products sum in a fixed order)."""
+        B = as_tensor(other, self.device)
+        At = plan_cache.get(self, "transpose", self.transpose)
+        return At.dot(B) if B.ndim == 1 else At.dot(B.T).T
+
+    def sddmm(self, C, D):
+        vals = csc_sddmm(self.indptr, self.indices, self.data, as_tensor(C, self.device),
+                         as_tensor(D, self.device))
+        return self._with_data(vals)
+
+    # -- elementwise / reductions ------------------------------------------
+    def __add__(self, other):
+        if isinstance(other, SparseArray):
+            return (self.tocsr() + other).tocsc()
+        return self.tocsr() + other  # a scalar raises there, a dense operand densifies
+
+    def __mul__(self, other):
+        if np.isscalar(other) or getattr(other, "ndim", 1) == 0:
+            return self._with_data(self.data * other)
+        return self.tocsr().multiply(other).tocsc()
+
+    def multiply(self, other):
+        return self.__mul__(other)
+
+    def sum(self, axis=None):
+        """CSC of A is CSR of A^T: the axis flips."""
+        if axis is None:
+            return self.data.sum()
+        flip = {0: 1, -2: 1, 1: 0, -1: 0}[axis]
+        return csr_sum(self.indptr, self.indices, self.data, (self.shape[1], self.shape[0]),
+                       axis=flip)
+
+    def diagonal(self, k=0):
+        return csr_diagonal(self.indptr, self.indices, self.data, (self.shape[1], self.shape[0]),
+                            k=-k)
 
     def tocsc(self):
         return self

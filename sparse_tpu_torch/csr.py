@@ -1,20 +1,25 @@
-"""CSR sparse array (``sparse_tpu/csr.py``'s main-path subset).
+"""CSR sparse array (``sparse_tpu/csr.py``).
 
 SpMV dispatch keeps the reference's order (``csr.py:398-446``): banded
 matrices (``_maybe_dia``) take the prepared DIA kernel, then the prepared
 SELL-C-sigma kernel (``_maybe_sell``), then the ELL gather path, then the
-segment path. SpGEMM and the elementwise products are not ported yet.
+segment path. ``x @ A`` runs on the plan-cached transpose, sparse @
+sparse is the ESC SpGEMM (``ops.spgemm``), and the elementwise products,
+sums and diagonals are ``ops.elementwise``'s.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import plan_cache
 from .base import SparseArray
 from .config import settings
-from .ops import conv, spmv as spmv_ops
+from .ops import conv, elementwise, spmv as spmv_ops, tropical
 from .ops.coords import expand_rows
+from .ops.sddmm import csr_sddmm
+from .ops.spgemm import spgemm_csr_csr
 from .utils import as_tensor, host_int, resolve_device
 
 _SPMV_MODES = ("auto", "pallas", "sell", "ell", "segment")
@@ -174,9 +179,15 @@ class csr_array(SparseArray):
 
     # -- products ------------------------------------------------------------
     def dot(self, other):
-        """A @ other for a dense 1-D (SpMV) or 2-D (SpMM) operand."""
+        """A @ other: SpMV for a dense 1-D operand, SpMM for a dense 2-D
+        one, SpGEMM (``ops.spgemm``) for a sparse one."""
         if isinstance(other, SparseArray):
-            raise NotImplementedError("sparse @ sparse (SpGEMM) is not ported yet")
+            if self.shape[1] != other.shape[0]:
+                raise ValueError(f"dimension mismatch: {self.shape} @ {other.shape}")
+            b = other.tocsr()
+            indptr, indices, data = spgemm_csr_csr(self.indptr, self.indices, self.data, b.indptr,
+                                                   b.indices, b.data, self.shape, b.shape)
+            return csr_array.from_parts(data, indices, indptr, (self.shape[0], b.shape[1]))
         x = as_tensor(other, self.device)
         if x.ndim not in (1, 2):
             raise ValueError("can only multiply by 1-D or 2-D arrays")
@@ -218,6 +229,96 @@ class csr_array(SparseArray):
 
     def matvec(self, x):
         return self.dot(x)
+
+    def _rdot(self, other):
+        """B @ A = (A^T B^T)^T: the plan-cached transpose's products run on
+        its own plan-cached CSR, row by row in a fixed order (no atomics),
+        so ``x @ A`` repeats bit for bit on the card as ``A.T @ x`` does."""
+        B = as_tensor(other, self.device)
+        return self.T.dot(B) if B.ndim == 1 else self.T.dot(B.T).T
+
+    def sddmm(self, C, D):
+        """A's values times (C @ D) at A's nonzeros."""
+        vals = csr_sddmm(self.indptr, self.indices, self.data, as_tensor(C, self.device),
+                         as_tensor(D, self.device))
+        return self._with_data(vals)
+
+    def _ell_plane(self):
+        ell = self._maybe_ell()
+        return None if ell is None else ell[0]
+
+    def tropical_spmv(self, x):
+        """(max, lexicographic) semiring SpMV over [n, f] integer tuples."""
+        return tropical.tropical_spmv(self.indptr, self.indices, self.data,
+                                      as_tensor(x, self.device), self.shape[0],
+                                      ell_idx=self._ell_plane())
+
+    def mis_tropical(self, k=1, invalid=None, seed=0):
+        """MIS(k) flags by the tropical tournament on the device: [m] int32,
+        2 = member, 0 = dominated, -1 = invalid."""
+        return tropical.mis_flags(self.indptr, self.indices, self.data, self.shape[0], k=k,
+                                  invalid=invalid, seed=seed, ell_idx=self._ell_plane())
+
+    def mis_aggregate_cols(self, flags):
+        """(aggregate column per node, n_coarse) from MIS flags: each node
+        routed to its nearest root, on the device."""
+        return tropical.mis_aggregate_cols(self.indptr, self.indices, self.data, self.shape[0],
+                                           as_tensor(flags, self.device),
+                                           ell_idx=self._ell_plane())
+
+    # -- elementwise ---------------------------------------------------------
+    def __add__(self, other):
+        if np.isscalar(other):
+            if other == 0:
+                return self.copy()
+            raise NotImplementedError("adding a nonzero scalar densifies")
+        if isinstance(other, SparseArray):
+            b = other.tocsr()
+            indptr, indices, data = elementwise.csr_add_csr(
+                self.indptr, self.indices, self.data, b.indptr, b.indices, b.data, self.shape)
+            return csr_array.from_parts(data, indices, indptr, self.shape)
+        return self.toarray() + as_tensor(other, self.device)  # dense: a dense result
+
+    def __radd__(self, other):
+        return self.__add__(other)
+
+    def __mul__(self, other):
+        if np.isscalar(other) or getattr(other, "ndim", 1) == 0:
+            return self._with_data(self.data * other)
+        return self.multiply(other)
+
+    def multiply(self, other):
+        """Elementwise product with a scalar, a sparse operand
+        (intersection) or a dense one (broadcast rows or columns scale the
+        nonzeros in place, with no [m, n] broadcast)."""
+        if np.isscalar(other) or getattr(other, "ndim", 1) == 0:
+            return self._with_data(self.data * other)
+        if isinstance(other, SparseArray):
+            b = other.tocsr()
+            indptr, indices, data = elementwise.csr_mult_csr(
+                self.indptr, self.indices, self.data, b.indptr, b.indices, b.data, self.shape)
+            return csr_array.from_parts(data, indices, indptr, self.shape)
+        d = as_tensor(other, self.device)
+        m, n = self.shape
+        if d.ndim == 1:
+            d = d[None, :]
+        if d.ndim != 2 or d.shape[0] not in (1, m) or d.shape[1] not in (1, n):
+            raise ValueError(f"inconsistent shapes: {self.shape} and {tuple(d.shape)}")
+        if tuple(d.shape) == (1, 1):
+            return self._with_data(self.data * d[0, 0])
+        if d.shape[1] == 1:  # a column: scale rows
+            return self._with_data(self.data * d[expand_rows(self.indptr, self.nnz), 0])
+        if d.shape[0] == 1:  # a row: scale columns
+            return self._with_data(self.data * d[0, self.indices])
+        return self._with_data(elementwise.csr_mult_dense(self.indptr, self.indices, self.data,
+                                                          d, self.shape))
+
+    # -- reductions / extraction ---------------------------------------------
+    def sum(self, axis=None):
+        return elementwise.csr_sum(self.indptr, self.indices, self.data, self.shape, axis=axis)
+
+    def diagonal(self, k=0):
+        return elementwise.csr_diagonal(self.indptr, self.indices, self.data, self.shape, k=k)
 
     # -- conversions ---------------------------------------------------------
     def tocsr(self):

@@ -12,6 +12,7 @@ import torch
 
 from .base import SparseArray
 from .config import settings
+from .ops.coords import dedup_sorted, sort_coo
 from .types import index_dtype_for
 from .utils import as_tensor
 
@@ -168,6 +169,37 @@ class dia_array(SparseArray):
                 return dia_spmv_torch(self.data, offs, x, self.shape)
         return self.tocsr().dot(other)
 
+    def _rdot(self, other):
+        return self.tocsr()._rdot(other)
+
+    def __add__(self, other):
+        return self.tocsr() + other
+
+    def __mul__(self, other):
+        if np.isscalar(other) or getattr(other, "ndim", 1) == 0:
+            return self._with_data(self.data * other)
+        return self.tocsr().multiply(other)
+
+    def multiply(self, other):
+        return self.__mul__(other)
+
+    def sum(self, axis=None):
+        return self.tocsr().sum(axis=axis)
+
+    def diagonal(self, k=0):
+        """The plane of offset ``k`` read at its columns (zeros where the
+        matrix stores no such diagonal)."""
+        m, n = self.shape
+        out_len = min(m + min(k, 0), n - max(k, 0))
+        if out_len <= 0:
+            return torch.zeros((0,), dtype=self.dtype, device=self.device)
+        hits = np.nonzero(self.offsets == k)[0]
+        if hits.size == 0:
+            return torch.zeros((out_len,), dtype=self.dtype, device=self.device)
+        lo = max(0, k)
+        seg = self.data[int(hits[0]), lo: lo + out_len]
+        return torch.nn.functional.pad(seg, (0, out_len - seg.shape[0]))
+
     def __str__(self):
         return (
             f"<{self.shape[0]}x{self.shape[1]} DIA array,"
@@ -178,8 +210,9 @@ class dia_array(SparseArray):
 
 
 def _coo_to_dia(c):
-    """COO -> (data, offsets, shape); duplicates sum. One host fetch of the
-    distinct offsets."""
+    """COO -> (data, offsets, shape); duplicates summed in sorted order
+    (``coords.dedup_sorted``), each plane slot written once. One host
+    fetch of the distinct offsets."""
     m, n = c.shape
     offs_dev = c.col.to(torch.int64) - c.row.to(torch.int64)
     offsets = torch.unique(offs_dev)
@@ -187,6 +220,7 @@ def _coo_to_dia(c):
     data = torch.zeros((max(nd, 1), n), dtype=c.data.dtype, device=c.data.device)
     if c.nnz:
         k = torch.searchsorted(offsets, offs_dev)
-        data.index_put_((k, c.col.to(torch.int64)), c.data, accumulate=True)
+        uk, ucol, uval, _ = dedup_sorted(*sort_coo(k, c.col, c.data, (nd, n)))
+        data[uk, ucol.long()] = uval
     offsets = offsets.cpu().numpy() if nd else np.zeros((1,), dtype=np.int64)
     return data, offsets, (m, n)

@@ -1,13 +1,19 @@
-"""MatrixMarket reading (``sparse_tpu/io.py:71``): a numpy parser on the
-host, producing a ``coo_array`` on the requested device. Symmetric,
-skew-symmetric and hermitian files expand their mirrored entries;
-pattern files read as ones."""
+"""MatrixMarket IO (``sparse_tpu/io.py``).
+
+``mmread`` parses on the host, with the native tokenizer
+(``native.parse_mtx_body`` / ``parse_mtx_dense``) where it builds and
+numpy's ``loadtxt`` where it does not, and returns a ``coo_array`` on the
+requested device. Symmetric, skew-symmetric and hermitian files expand
+their mirrored entries; pattern files read as ones. ``mmwrite`` writes a
+general coordinate file that both packages (and scipy) read."""
 
 from __future__ import annotations
 
 import numpy as np
 
+from . import native
 from .coo import coo_array
+from .utils import host_array
 
 
 def _parse_header(line: str):
@@ -25,6 +31,13 @@ def _parse_header(line: str):
 
 
 def _parse_coordinate_body(f, nnz: int, field: str):
+    if nnz and native.lib() is not None:
+        parsed = native.parse_mtx_body(f.read().encode(), nnz,
+                                       {"pattern": 0, "complex": 2}.get(field, 1))
+        if parsed is None:
+            raise ValueError(f"MatrixMarket body does not contain exactly {nnz} entries")
+        rows, cols, re, im = parsed
+        return rows, cols, re + 1j * im if field == "complex" else re
     body = np.loadtxt(f, ndmin=2) if nnz else np.zeros((0, 3))
     if body.shape[0] != nnz:
         raise ValueError(f"expected {nnz} entries, found {body.shape[0]}")
@@ -41,8 +54,17 @@ def _parse_coordinate_body(f, nnz: int, field: str):
 
 def _parse_array_body(f, m: int, n: int, field: str, symmetry: str):
     """Dense column-major ``array`` body -> (rows, cols, vals) of its nonzeros."""
-    body = np.loadtxt(f, ndmin=2)
-    flat = body[:, 0] + 1j * body[:, 1] if field == "complex" else body[:, 0]
+    if symmetry == "general":
+        count = m * n
+    else:  # the lower triangle; strict for skew-symmetric files
+        count = n * (n - 1) // 2 if symmetry == "skew-symmetric" else n * (n + 1) // 2
+    if field != "complex" and count and native.lib() is not None:
+        flat = native.parse_mtx_dense(f.read().encode(), count)
+        if flat is None:
+            raise ValueError(f"MatrixMarket array body does not contain exactly {count} entries")
+    else:
+        body = np.loadtxt(f, ndmin=2)
+        flat = body[:, 0] + 1j * body[:, 1] if field == "complex" else body[:, 0]
     if symmetry == "general":
         dense = flat.reshape((n, m)).T
     else:
@@ -83,3 +105,23 @@ def mmread(path, device=None) -> coo_array:
         cols = np.concatenate([cols, c2])
         vals = np.concatenate([vals, v2])
     return coo_array((vals, (rows, cols)), shape=(m, n), device=device)
+
+
+def mmwrite(path, A, comment: str = "", precision: int = 16) -> None:
+    """Write a sparse array (or a dense 2-D operand) as a general
+    MatrixMarket coordinate file, real or complex, values at
+    ``precision`` significant digits."""
+    c = A.tocoo() if hasattr(A, "tocoo") else coo_array(A, device="cpu")
+    rows, cols, vals = host_array(c.row) + 1, host_array(c.col) + 1, host_array(c.data)
+    cplx = np.iscomplexobj(vals)
+    with open(path, "w") as f:
+        f.write(f"%%MatrixMarket matrix coordinate {'complex' if cplx else 'real'} general\n")
+        for ln in comment.splitlines():
+            f.write(f"%{ln}\n")
+        f.write(f"{c.shape[0]} {c.shape[1]} {c.nnz}\n")
+        if cplx:
+            for r, cc, v in zip(rows, cols, vals):
+                f.write(f"{r} {cc} {v.real:.{precision}g} {v.imag:.{precision}g}\n")
+        else:
+            for r, cc, v in zip(rows, cols, vals):
+                f.write(f"{r} {cc} {v:.{precision}g}\n")

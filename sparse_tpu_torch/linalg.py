@@ -17,13 +17,13 @@
 ``_cg_device_loop``'s shape. ``gmres`` runs each restart cycle on the
 device and fetches one packed triple a cycle. ``minres``, ``tfqmr``,
 ``qmr``, ``lsqr`` and ``lsmr`` run the reference's ``lax.while_loop`` as
-:func:`_device_while`: chunks of masked iterations, one fetch of the stop
-flag a chunk. ``lgmres`` and ``gcrotmk`` drive augmented cycles from the
-host, their small least squares solved on the host from a device QR.
-Every host fetch of these drivers goes through :func:`_sync_fetch`, which
-counts it in ``HOST_SYNCS``. Adjoint products (``rmatvec``) run on a CSR
-of the transpose held by the operator, so they repeat bit for bit on the
-card.
+``hostsync.device_while``: chunks of masked iterations, one fetch of the
+stop flag a chunk. ``lgmres`` and ``gcrotmk`` drive augmented cycles from
+the host, their small least squares solved on the host from a device QR.
+Every host fetch of these drivers goes through ``hostsync.fetch``, which
+counts it in ``hostsync.HOST_SYNCS``. Adjoint products (``rmatvec``) run
+on a CSR of the transpose held by the operator, so they repeat bit for bit
+on the card.
 
 ``batched_cg``/``batched_bicgstab``/``batched_gmres`` solve B systems over
 one sparsity pattern (``sparse_tpu_torch.batch.krylov``), and
@@ -38,7 +38,7 @@ import math
 import numpy as np
 import torch
 
-from . import plan_cache
+from . import hostsync, plan_cache
 from .base import SparseArray
 from .config import settings
 from .utils import as_tensor, resolve_device
@@ -240,7 +240,7 @@ class _SparseMatrixLinearOperator(LinearOperator):
         super().__init__(A.shape, dtype=A.dtype)
         self.A = A
         self.device = A.device
-        self._AT = None
+        self._AT = None  # (A._edits when built, A^T)
         # warm the layouts (banded detection, ELL) once, at wrap time
         prepare = getattr(A, "prepare", None)
         if prepare is not None:
@@ -248,12 +248,14 @@ class _SparseMatrixLinearOperator(LinearOperator):
 
     def _transpose(self):
         """A^T in a row-wise format, built on the first adjoint product and
-        held for the operator's life, plan cache or not: a CSR array (the
-        CSC view's plan-cached CSR form), or a DIA array for a DIA operand.
-        Its products take the row-wise DIA, SELL, ELL or segment paths,
-        which sum each row in a fixed order, so an adjoint product repeats
-        bit for bit on the card."""
-        if self._AT is None:
+        held, plan cache or not, until A is edited in place (``setdiag``,
+        ``resize``, ``eliminate_zeros``): a CSR array (the CSC view's
+        plan-cached CSR form), or a DIA array for a DIA operand. Its
+        products take the row-wise DIA, SELL, ELL or segment paths, which
+        sum each row in a fixed order, so an adjoint product repeats bit for
+        bit on the card."""
+        edits = getattr(self.A, "_edits", 0)
+        if self._AT is None or self._AT[0] != edits:
             AT = self.A.T
             if AT.format == "csc":
                 AT = plan_cache.get(AT, "csr", AT.tocsr)
@@ -262,8 +264,8 @@ class _SparseMatrixLinearOperator(LinearOperator):
             prepare = getattr(AT, "prepare", None)
             if prepare is not None:
                 prepare()
-            self._AT = AT
-        return self._AT
+            self._AT = (edits, AT)
+        return self._AT[1]
 
     def matvec(self, x):
         return self.A.dot(x)
@@ -366,7 +368,7 @@ def _tested(iters: int, maxiter: int, conv_test_iters: int) -> bool:
 
 def _converged(r, tol2) -> bool:
     """||r||^2 < tol2, read on the host (one counted fetch)."""
-    return bool(_sync_fetch(_vdot(r, r).real < tol2))
+    return bool(hostsync.fetch(_vdot(r, r).real < tol2))
 
 
 # ---------------------------------------------------------------------------
@@ -454,7 +456,7 @@ def _try_fused_cg(A, b, x0, tol, maxiter, conv_test_iters):
             planes=packed,
         )
         iters += k
-        rho_f = float(_sync_fetch(rho))
+        rho_f = float(hostsync.fetch(rho))
         if not math.isfinite(rho_f):
             return x, iters, rho_f, -1
         if rho_f < tol2:
@@ -505,7 +507,7 @@ def _cg_host_loop(A, b, x, tol, maxiter, M, callback, conv_test_iters):
         if callback is not None:
             callback(x)
         if (iters % conv_test_iters == 0 or iters == maxiter - 1) and float(
-            _sync_fetch(torch.linalg.vector_norm(r))
+            hostsync.fetch(torch.linalg.vector_norm(r))
         ) < tol:
             break
     return x, iters
@@ -663,18 +665,6 @@ def bicgstab(A, b, x0=None, tol=1e-08, maxiter=None, callback=None, conv_test_it
 # ---------------------------------------------------------------------------
 # GMRES: restarted, Givens-rotation least squares
 # ---------------------------------------------------------------------------
-# Counts device -> host fetches made by the solver drivers: reset it, run a
-# solve, read it
-HOST_SYNCS = 0
-
-
-def _sync_fetch(x):
-    """Fetch a device value to the host, counting the round trip."""
-    global HOST_SYNCS
-    HOST_SYNCS += 1
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
 def gmres(A, b, x0=None, tol=1e-08, restart=None, maxiter=None, M=None, callback=None,
           atol=None):
     """Restarted GMRES (right side ``M``); returns (x, iters). Converges on
@@ -702,7 +692,7 @@ def gmres(A, b, x0=None, tol=1e-08, restart=None, maxiter=None, M=None, callback
     for _outer in range(maxiter):
         x, info = _gmres_cycle(A, M, x, b, target, restart)
         # the one host fetch of the cycle
-        inner, _beta, bdown = _sync_fetch(info)
+        inner, _beta, bdown = hostsync.fetch(info)
         inner = int(inner)
         if inner == 0 and not bdown:
             break  # converged on entry
@@ -790,47 +780,9 @@ def _gmres_cycle(A, M, x, b, target, restart: int):
 # ---------------------------------------------------------------------------
 # LSQR: Golub-Kahan bidiagonalization
 # ---------------------------------------------------------------------------
-#: iterations a device loop (:func:`_device_while`) runs between two host
-#: reads of its stop flag
-CHECK_EVERY = 32
-
-
-def _device_while(cond, body, state, limit: int, count: str = "itn", stats=None, callback=None):
-    """The reference's ``lax.while_loop`` on torch: ``state`` a dict of
-    tensors, ``cond(state)`` a device bool, ``body(state)`` the next state,
-    ``state[count]`` an iteration counter that ``cond`` stops at ``limit``.
-
-    Runs chunks of at most ``CHECK_EVERY`` iterations with no host read,
-    each iteration past the stop condition frozen: every tensor of the
-    state (the counter included) keeps its value under ``torch.where``.
-    The iterates and the count are then the reference's, and a NaN from a
-    guarded division after convergence never leaks in. Before each chunk
-    the host fetches the stop flag and the counter, packed with
-    ``stats(state)`` (0-d tensors), in one counted fetch, and cuts the chunk
-    at ``limit``: a solve of ``itn`` iterations makes at most
-    ceil(itn / CHECK_EVERY) + 1 fetches. With a ``callback`` the loop runs
-    eagerly, fetching before and calling ``callback(state["x"])`` after
-    every iteration. Returns the final state, its count and the host
-    values of ``stats`` on it."""
-
-    while True:
-        vals = [cond(state), state[count]] + (list(stats(state)) if stats is not None else [])
-        host = _sync_fetch(torch.stack([v.to(torch.float64) for v in vals]))
-        if not host[0]:
-            return state, int(host[1]), host[2:]
-        if callback is not None:
-            state = body(state)
-            callback(state["x"])
-            continue
-        for _ in range(min(CHECK_EVERY, limit - int(host[1]))):
-            active = cond(state)
-            new = body(state)
-            state = {key: torch.where(active, new[key], v) for key, v in state.items()}
-
-
 def lsqr(A, b, damp=0.0, atol=1e-08, btol=1e-08, conlim=1e8, iter_lim=None, calc_var=False):
     """Golub-Kahan bidiagonalization least squares (Paige & Saunders, as in
-    scipy), one :func:`_device_while` loop whose scalar recurrences and
+    scipy), one ``hostsync.device_while`` loop whose scalar recurrences and
     stopping estimates stay on the device. Returns scipy's 10-tuple
     (x, istop, itn, r1norm, r2norm, anorm, acond, arnorm, xnorm, var);
     ``var`` is estimated only under ``calc_var=True`` (zeros otherwise)."""
@@ -951,7 +903,7 @@ def lsqr(A, b, damp=0.0, atol=1e-08, btol=1e-08, conlim=1e8, iter_lim=None, calc
         return (s["istop"], s["itn"], s["r1norm"], s["rnorm"], s["anorm"], s["acond"],
                 s["arnorm"], s["xnorm"], dead, bn)
 
-    out, _, st = _device_while(cond, body, init, iter_lim, stats=stats)
+    out, _, st = hostsync.device_while(cond, body, init, iter_lim, stats=stats)
     if st[8]:  # degenerate: b == 0 or A^H b == 0
         r0 = float(st[9])
         return x0, 0, 0, r0, r0, 0.0, 0.0, 0.0, 0.0, init["var"]
@@ -1015,7 +967,7 @@ def minres(A, b, x0=None, shift=0.0, tol=1e-5, maxiter=None, M=None, callback=No
         itn=torch.zeros((), dtype=torch.int32, device=dev),
     )
     dead = (beta1 == 0) | (bnorm == 0)
-    b1sq_h, bnorm_h = _sync_fetch(torch.stack([b1sq.to(rdt), bnorm]))
+    b1sq_h, bnorm_h = hostsync.fetch(torch.stack([b1sq.to(rdt), bnorm]))
     if Mop is not None and b1sq_h < 0:
         raise ValueError("minres: indefinite preconditioner")
     if x0 is not None and bnorm_h == 0:
@@ -1058,14 +1010,14 @@ def minres(A, b, x0=None, shift=0.0, tol=1e-5, maxiter=None, M=None, callback=No
             itn=itn,
         )
 
-    out, itn, _ = _device_while(cond, body, init, maxiter, callback=callback)
+    out, itn, _ = hostsync.device_while(cond, body, init, maxiter, callback=callback)
     return out["x"], itn
 
 
 def lsmr(A, b, damp=0.0, atol=1e-6, btol=1e-6, conlim=1e8, maxiter=None, x0=None):
     """LSMR (Fong & Saunders): least squares by Golub-Kahan
     bidiagonalization with a MINRES-shaped recurrence, one
-    :func:`_device_while` loop. Returns scipy's 8-tuple
+    ``hostsync.device_while`` loop. Returns scipy's 8-tuple
     (x, istop, itn, normr, normar, norma, conda, normx). With ``x0`` the
     bidiagonalization starts from b - A x0 (the stopping norms then
     describe that residual system)."""
@@ -1189,7 +1141,7 @@ def lsmr(A, b, damp=0.0, atol=1e-6, btol=1e-6, conlim=1e8, maxiter=None, x0=None
         normx = s["normx"] if x_off is None else torch.linalg.vector_norm(s["x"] + x_off)
         return (s["istop"], s["itn"], s["normr"], s["normar"], s["norma"], s["conda"], normx)
 
-    out, _, st = _device_while(cond, body, init, maxiter, stats=stats)
+    out, _, st = hostsync.device_while(cond, body, init, maxiter, stats=stats)
     x = out["x"] if x_off is None else out["x"] + x_off
     return (x, int(st[0]), int(st[1]), float(st[2]), float(st[3]), float(st[4]), float(st[5]),
             float(st[6]))
@@ -1198,7 +1150,7 @@ def lsmr(A, b, damp=0.0, atol=1e-6, btol=1e-6, conlim=1e8, maxiter=None, x0=None
 def tfqmr(A, b, x0=None, tol=1e-8, maxiter=None, M=None, callback=None, atol=0.0):
     """Transpose-free QMR (Freund 1993; scipy semantics): one matvec a
     half-iteration, the even and odd halves merged with ``torch.where`` in
-    one :func:`_device_while` loop. ``M`` is a left preconditioner (solves
+    one ``hostsync.device_while`` loop. ``M`` is a left preconditioner (solves
     M A x = M b); converges on tau sqrt(m + 1) <= max(atol, tol ||M r0||).
     Returns (x, iters)."""
     b = as_tensor(b, _operator_device(A, b))
@@ -1261,7 +1213,7 @@ def tfqmr(A, b, x0=None, tol=1e-8, maxiter=None, M=None, callback=None, atol=0.0
             eta=eta_n, tau=tau_n, m=s["m"] + 1,
         )
 
-    out, m, _ = _device_while(cond, body, init, maxiter, count="m", callback=callback)
+    out, m, _ = hostsync.device_while(cond, body, init, maxiter, count="m", callback=callback)
     return out["x"], m
 
 
@@ -1356,7 +1308,7 @@ def qmr(A, b, x0=None, tol=1e-8, maxiter=None, M1=None, M2=None, callback=None,
             theta=theta_new, epsq=epsq, itn=itn,
         )
 
-    out, itn, _ = _device_while(cond, body, init, maxiter, callback=callback)
+    out, itn, _ = hostsync.device_while(cond, body, init, maxiter, callback=callback)
     return out["x"], itn
 
 
@@ -1374,7 +1326,7 @@ def _lstsq_min_norm(AZ, r):
     solves R y = Q^H r (R has AZ's singular values)."""
     n, K = AZ.shape
     Q, R = torch.linalg.qr(AZ)
-    Rh = _sync_fetch(torch.cat([R, (Q.conj().T @ r)[:, None]], dim=1))
+    Rh = hostsync.fetch(torch.cat([R, (Q.conj().T @ r)[:, None]], dim=1))
     R, c = Rh[:, :K], Rh[:, K]
     U, sv, Vh = np.linalg.svd(R)
     keep = (sv > 0) & (sv >= np.finfo(sv.dtype).eps * max(n, K) * sv[0])
@@ -1406,7 +1358,7 @@ def _augmented_cycle(A, Mop, r, inner_m, aug):
         for _ in range(2):  # two passes of Gram-Schmidt against the basis
             w = w - (Vj.conj() @ w) @ Vj
         wn = torch.linalg.vector_norm(w)
-        wn_h, rn_h = _sync_fetch(torch.stack([wn, rnorm]))
+        wn_h, rn_h = hostsync.fetch(torch.stack([wn, rnorm]))
         if float(wn_h) <= 1e-12 * float(rn_h):
             break  # breakdown: the subspace is invariant
         V[j] = w / wn
@@ -1419,7 +1371,7 @@ def _augmented_cycle(A, Mop, r, inner_m, aug):
 
 def _norm_h(v) -> float:
     """||v|| on the host (one counted fetch)."""
-    return float(_sync_fetch(torch.linalg.vector_norm(v)))
+    return float(hostsync.fetch(torch.linalg.vector_norm(v)))
 
 
 def _augmented_setup(A, b, x0, M):
@@ -1454,7 +1406,7 @@ def lgmres(A, b, x0=None, tol=1e-5, atol=0.0, maxiter=1000, M=None, callback=Non
         if callback is not None:
             callback(x)
         dn = torch.linalg.vector_norm(dx)
-        if int(outer_k) > 0 and float(_sync_fetch(dn)) > 0:
+        if int(outer_k) > 0 and float(hostsync.fetch(dn)) > 0:
             # adx is A dx from the cycle's own images: no extra matvec
             aug = [(dx / dn, adx / dn)] + aug[: int(outer_k) - 1]
     return x, (0 if _norm_h(b - A.matvec(x)) <= target else int(maxiter))
@@ -1496,7 +1448,7 @@ def gcrotmk(A, b, x0=None, tol=1e-5, atol=0.0, maxiter=1000, M=None, callback=No
             cnew = cnew - beta * c
             unew = unew - beta * u
         an = torch.linalg.vector_norm(cnew)
-        if float(_sync_fetch(an)) > 1e-12:
+        if float(hostsync.fetch(an)) > 1e-12:
             recycled.append((unew / an, cnew / an))
             if len(recycled) > int(k):
                 if truncate == "oldest":
@@ -1504,7 +1456,7 @@ def gcrotmk(A, b, x0=None, tol=1e-5, atol=0.0, maxiter=1000, M=None, callback=No
                 else:
                     # 'smallest': drop the image least aligned with the
                     # current correction (the newest pair is always kept)
-                    scores = np.abs(_sync_fetch(torch.stack([_vdot(c, adx) for _, c in
+                    scores = np.abs(hostsync.fetch(torch.stack([_vdot(c, adx) for _, c in
                                                              recycled[:-1]])))
                     drop = int(np.argmin(scores))
                     recycled = recycled[:drop] + recycled[drop + 1:]

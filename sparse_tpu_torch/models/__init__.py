@@ -4,6 +4,7 @@ from .poisson import (
     cg_dia,
     cg_ell,
     cg_step_ell,
+    laplacian_2d_csr,
     laplacian_2d_csr_host,
     laplacian_2d_dia,
     laplacian_2d_ell,
@@ -13,6 +14,6 @@ from .poisson import (
 )
 
 __all__ = [
-    "cg_dia", "cg_ell", "cg_step_ell", "laplacian_2d_csr_host", "laplacian_2d_dia",
-    "laplacian_2d_ell", "make_cg_step_dia", "poisson_cg_state", "poisson_cg_state_dia",
+    "cg_dia", "cg_ell", "cg_step_ell", "laplacian_2d_csr", "laplacian_2d_csr_host",
+    "laplacian_2d_dia", "laplacian_2d_ell", "make_cg_step_dia", "poisson_cg_state", "poisson_cg_state_dia",
 ]

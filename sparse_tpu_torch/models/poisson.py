@@ -8,8 +8,8 @@ of the reference's compiled ``fori_loop``).
 
 The flagship step, :func:`make_cg_step_dia`, sends its SpMV through
 ``kernels.dia_spmv.dia_spmv_direct``, the hand-written kernel on a CUDA
-tensor. ``laplacian_2d_csr`` (the ``kron`` construction) waits for
-``kron`` and sparse addition.
+tensor. ``laplacian_2d_csr`` builds the operator as the reference does,
+``kron(l1, I) + kron(I, l1)``, on the device.
 
 Every function that makes data runs on ``settings.device`` unless given
 ``device=``. ``jax.random`` becomes a seeded ``torch.Generator``, which
@@ -45,6 +45,17 @@ def laplacian_2d_ell(n: int, dtype=torch.float32, device=None):
     vals = torch.where(valid, stencil, torch.zeros((), dtype=dtype, device=dev))
     cols = torch.where(valid, cols, torch.zeros((), dtype=torch.int32, device=dev))
     return cols, vals
+
+
+def laplacian_2d_csr(n: int, dtype=np.float64, device=None):
+    """The n*n-point 2-D Laplacian through the library's own diags, kron
+    and sparse addition: kron(l1, I) + kron(I, l1) as CSR, l1 the 1-D
+    [-1, 2, -1] stencil."""
+    from ..module import diags, identity, kron
+
+    l1 = diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(n, n), dtype=dtype, device=device)
+    eye = identity(n, dtype=dtype, device=device)
+    return (kron(l1, eye) + kron(eye, l1)).tocsr()
 
 
 def laplacian_2d_csr_host(n: int, dtype=np.float64, device=None):

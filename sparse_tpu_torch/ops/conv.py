@@ -1,7 +1,9 @@
 """Format conversions: dense<->CSR, COO<->CSR/CSC, CSR<->CSC, ELL build.
 
 Port of ``sparse_tpu/ops/conv.py``: count on the device, one host fetch
-for the size, then a fixed-shape fill.
+for the size, then a fixed-shape fill. Duplicates are summed in sorted
+order (``coords.dedup_sorted``), never by scatter-adds, so every
+conversion repeats bit for bit on either device.
 """
 
 from __future__ import annotations
@@ -27,21 +29,18 @@ def dense_to_csr(d: torch.Tensor):
 
 
 def csr_to_dense(indptr, indices, data, shape):
-    m, n = shape
-    out = torch.zeros((m, n), dtype=data.dtype, device=data.device)
-    nnz = data.shape[0]
-    if nnz == 0:
-        return out
-    rows = expand_rows(indptr, nnz)
-    out.index_put_((rows, indices), data, accumulate=True)
-    return out
+    return coo_to_dense(expand_rows(indptr, data.shape[0]), indices, data, shape)
 
 
 def coo_to_dense(rows, cols, vals, shape):
+    """Dense [m, n] of COO triples, duplicates summed: one stable (row,
+    col) sort, the runs summed in order (``dedup_sorted``), then each
+    entry written once, so a repeated call gives the same bits."""
     out = torch.zeros(tuple(shape), dtype=vals.dtype, device=vals.device)
     if vals.shape[0] == 0:
         return out
-    out.index_put_((rows, cols), vals, accumulate=True)
+    urows, ucols, uvals, _ = dedup_sorted(*sort_coo(rows, cols, vals, shape))
+    out[urows.long(), ucols.long()] = uvals
     return out
 
 

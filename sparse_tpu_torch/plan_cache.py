@@ -73,6 +73,15 @@ def lookup(obj, kind: str):
     return None
 
 
+def forget(obj) -> None:
+    """Drop every plan of ``obj``: its data changed in place."""
+    with _LOCK:
+        fin = _FINALIZERS.get(id(obj))
+        if fin is not None:
+            fin.detach()
+        _evict_object(id(obj))
+
+
 def stats() -> dict:
     with _LOCK:
         return {**_COUNTS, "size": len(_ENTRIES)}

@@ -560,3 +560,101 @@ def test_bicg_repeats_bit_for_bit():
     x1, i1 = linalg.bicg(A, b, tol=0.0, maxiter=150)
     x2, i2 = linalg.bicg(A, b, tol=0.0, maxiter=150)
     assert i1 == i2 == 150 and torch.equal(x1, x2)
+
+
+def _same_csr(a, b):
+    return all(torch.equal(u, v) for u, v in ((a.indptr, b.indptr), (a.indices, b.indices),
+                                              (a.data, b.data)))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("which", ["banded", "random"])
+def test_spgemm_repeats_bit_for_bit(which, dtype):
+    """The ESC on the card: a stable sort and in-order segment sums, so two
+    products agree bit for bit, and with the CPU's ESC to rounding."""
+    from sparse_tpu_torch import hostsync, native
+
+    if which == "banded":
+        A = st.diags([1] * 11, list(range(-5, 6)), shape=(3000, 3000), format="csr", dtype=dtype)
+    else:
+        A = st.random(2000, 2000, density=0.01, format="csr", random_state=3, dtype=dtype)
+    hostsync.HOST_SYNCS = 0
+    C1 = A @ A
+    assert hostsync.HOST_SYNCS == 2
+    assert _same_csr(C1, A @ A)
+    Ac = st.csr_array((A.data.cpu(), A.indices.cpu(), A.indptr.cpu()), shape=A.shape,
+                      device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native, "lib", lambda: None)  # the ESC on the host too
+        Cc = Ac @ Ac
+    assert torch.equal(C1.indices.cpu(), Cc.indices) and torch.equal(C1.indptr.cpu(), Cc.indptr)
+    torch.testing.assert_close(C1.data.cpu(), Cc.data, rtol=1e-5 if dtype == np.float32 else 1e-12,
+                               atol=0)
+
+
+@pytest.mark.parametrize("fmt", ["csr", "csc", "dia"])
+def test_rmatmul_repeats_bit_for_bit(fmt):
+    """x @ A runs as (A^T x)^T on the plan-cached transpose's CSR, through
+    a kernel: two calls agree bit for bit."""
+    A = _banded_nonsym(300).asformat(fmt)
+    x = torch.rand(A.shape[0], device="cuda")
+    before = D.dia_spmv_packed.launches
+    y1 = x @ A
+    y2 = x @ A
+    assert D.dia_spmv_packed.launches >= before + 2
+    assert torch.equal(y1, y2)
+    X = torch.rand((3, A.shape[0]), device="cuda")
+    assert torch.equal(X @ A, X @ A)
+
+
+@pytest.mark.parametrize("conv", ["coo_to_dense", "csr_to_dense", "coo_to_dia"])
+def test_fixed_conversions_repeat_bit_for_bit(conv):
+    """The conversions that sum duplicates, on a 64 x 64 COO holding every
+    entry 100 times: the same bits twice on the card."""
+    from sparse_tpu_torch.dia import _coo_to_dia
+    from sparse_tpu_torch.ops.conv import coo_to_dense, csr_to_dense
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    r = torch.arange(64 * 64, device="cuda").repeat(100) // 64
+    c = torch.arange(64 * 64, device="cuda").repeat(100) % 64
+    perm = torch.randperm(r.shape[0], device="cuda", generator=g)
+    r, c = r[perm], c[perm]
+    v = torch.randn(r.shape, device="cuda", generator=g, dtype=torch.float64)
+    if conv == "coo_to_dense":
+        run = lambda: coo_to_dense(r, c, v, (64, 64))  # noqa: E731
+    elif conv == "csr_to_dense":
+        order = torch.argsort(r, stable=True)
+        indptr = torch.searchsorted(r[order], torch.arange(65, device="cuda"))
+        run = lambda: csr_to_dense(indptr, c[order], v[order], (64, 64))  # noqa: E731
+    else:
+        coo = st.coo_array((v, (r, c)), shape=(64, 64))
+        run = lambda: _coo_to_dia(coo)[0]  # noqa: E731
+    assert torch.equal(run(), run())
+
+
+def test_cuda_tensors_never_reach_the_native_library(monkeypatch):
+    """f32/f64 products of CUDA tensors take the ESC, never the host
+    Gustavson, though the library is there."""
+    from sparse_tpu_torch import native
+
+    def boom(*a, **k):
+        raise AssertionError("native library reached from the card")
+
+    monkeypatch.setattr(native, "spgemm_host", boom)
+    monkeypatch.setattr(native, "lib", boom)
+    A = st.random(500, 500, density=0.02, format="csr", random_state=1, dtype=np.float64)
+    C = A @ A
+    assert C.device.type == "cuda" and C.nnz > 0
+
+
+def test_core_ops_on_card_match_the_cpu():
+    """Union add, intersection multiply, reductions and the MIS on the card
+    against the same calls on CPU tensors."""
+    from sparse_tpu_torch.models import laplacian_2d_csr
+
+    L = laplacian_2d_csr(40, np.float32)
+    Lc = laplacian_2d_csr(40, np.float32, device="cpu")
+    for f in (lambda a: (a + a.T).toarray(), lambda a: a.multiply(a).toarray(),
+              lambda a: a.sum(axis=0), lambda a: a.max(axis=1), lambda a: a.argmin(axis=0),
+              lambda a: a.diagonal(1), lambda a: a.mis_tropical(k=2, seed=4)):
+        assert torch.equal(f(L).cpu(), f(Lc))

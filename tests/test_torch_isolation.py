@@ -3,6 +3,7 @@
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -31,6 +32,10 @@ def test_import_pulls_in_neither_jax_nor_sparse_tpu():
         "import sparse_tpu_torch.kernels._build, sparse_tpu_torch.ops.spmv\n"
         "import sparse_tpu_torch.batch.krylov, sparse_tpu_torch.batch.operator\n"
         "import sparse_tpu_torch.models, sparse_tpu_torch.models.poisson\n"
+        "import sparse_tpu_torch.native, sparse_tpu_torch.hostsync, sparse_tpu_torch.module\n"
+        "import sparse_tpu_torch.ops.spgemm, sparse_tpu_torch.ops.elementwise\n"
+        "import sparse_tpu_torch.ops.reduce, sparse_tpu_torch.ops.sddmm\n"
+        "import sparse_tpu_torch.ops.tropical, sparse_tpu_torch.ops.coords\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sparse_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
@@ -38,6 +43,18 @@ def test_import_pulls_in_neither_jax_nor_sparse_tpu():
     out = _run(code)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+def test_native_library_builds_only_the_ports_own_source():
+    """The host library compiles sparse_tpu_torch/csrc/host_native.cc and
+    nothing under sparse_tpu/."""
+    from sparse_tpu_torch import native
+
+    src = native._SRC.resolve()
+    assert src.parent == (Path(ROOT) / "sparse_tpu_torch" / "csrc").resolve()
+    assert "sparse_tpu" + os.sep + "src" not in str(src)
+    if native.lib() is not None:
+        assert native._BUILD_DIR.resolve().is_relative_to((Path(ROOT) / "build").resolve())
 
 
 def test_chip_smoke_imports_neither_and_refuses_without_cuda():

@@ -19,7 +19,7 @@ import sparse_tpu
 from sparse_tpu import linalg as jlinalg
 
 import sparse_tpu_torch as st
-from sparse_tpu_torch import linalg
+from sparse_tpu_torch import hostsync, linalg
 
 from .test_laplaciannd_lgmres import _nonsym as _lgmres_system
 from .test_solvers_extra import _nonsym
@@ -140,16 +140,16 @@ def test_fetches_per_check(name):
     m, n = 80, 50
     s = sample_csr(m, n, density=0.2, seed=42)
     y = sample_vec(m, seed=43)
-    old = linalg.CHECK_EVERY
+    old = hostsync.CHECK_EVERY
     try:
         for every in (4, 32):
-            linalg.CHECK_EVERY = every
-            linalg.HOST_SYNCS = 0
+            hostsync.CHECK_EVERY = every
+            hostsync.HOST_SYNCS = 0
             out = getattr(linalg, name)(st.csr_array(s), y)
             assert out[2] > every
-            assert linalg.HOST_SYNCS <= -(-out[2] // every) + 1
+            assert hostsync.HOST_SYNCS <= -(-out[2] // every) + 1
     finally:
-        linalg.CHECK_EVERY = old
+        hostsync.CHECK_EVERY = old
 
 
 @pytest.mark.parametrize("name,system,kw", [

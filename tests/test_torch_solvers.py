@@ -24,7 +24,7 @@ import sparse_tpu
 from sparse_tpu import linalg as jlinalg
 
 import sparse_tpu_torch as st
-from sparse_tpu_torch import linalg
+from sparse_tpu_torch import hostsync, linalg
 
 from .test_solvers import _spd
 from .test_solvers_extra import _nonsym, _sym_indefinite
@@ -225,10 +225,10 @@ def test_gmres_one_fetch_per_cycle():
     n, restart = 80, 10
     s = (sample_csr(n, n, density=0.1, seed=40) + n * sp.identity(n)).tocsr()
     y = s @ sample_vec(n, seed=41)
-    linalg.HOST_SYNCS = 0
+    hostsync.HOST_SYNCS = 0
     x, iters = linalg.gmres(st.csr_array(s), y, restart=restart, tol=1e-10)
     assert iters > 0
-    assert linalg.HOST_SYNCS <= -(-iters // restart) + 1
+    assert hostsync.HOST_SYNCS <= -(-iters // restart) + 1
     assert np.allclose(s @ x.numpy(), y, atol=1e-6)
 
 
@@ -239,18 +239,18 @@ def test_device_loop_freezes_past_the_stop():
     S = _sym_indefinite(60, seed=0)
     b = sample_vec(60, seed=3)
     A = st.csr_array(S)
-    old = linalg.CHECK_EVERY
+    old = hostsync.CHECK_EVERY
     try:
         outs = []
         for every in (1, 7, 64):
-            linalg.CHECK_EVERY = every
-            linalg.HOST_SYNCS = 0
+            hostsync.CHECK_EVERY = every
+            hostsync.HOST_SYNCS = 0
             x, iters = linalg.minres(A, b, tol=1e-8, maxiter=240)
             # one fetch of ||b|| and b1sq before the loop, then one a chunk
-            assert linalg.HOST_SYNCS <= 1 + -(-iters // every) + 1
+            assert hostsync.HOST_SYNCS <= 1 + -(-iters // every) + 1
             outs.append((x, iters))
     finally:
-        linalg.CHECK_EVERY = old
+        hostsync.CHECK_EVERY = old
     assert outs[0][1] == outs[1][1] == outs[2][1]
     assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][0], outs[2][0])
 
