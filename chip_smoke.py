@@ -5,7 +5,7 @@
 
 Needs one CUDA card, ``nvcc`` and the repository checkout beside this file;
 exits non-zero without them, and on any failed check. Phases, in the order
-they run (1, 2a-2e, 3, 5, 6, 7, 8, 9, 10, 4, 11):
+they run (1, 2a-2e, 3, 5, 6, 7, 8, 9, 10, 4, 11, 12):
 
 1. card name and power limit; build the CUDA kernels (csrc/*.cu) and time it;
 2. each kernel against its plain torch version on the card: (a, b) the DIA
@@ -87,10 +87,33 @@ they run (1, 2a-2e, 3, 5, 6, 7, 8, 9, 10, 4, 11):
    linalg.cg (the fused kernels); (d) on it A + A.T, A - A.T, A.multiply(A),
    column sums, row maxima, the diagonal, sddmm (k = 8) and x @ A, timed
    and checked, and the tropical MIS at 1000^2, held on the host as a
-   maximal independent set and equal on a repeat.
+   maximal independent set and equal on a repeat;
+12. the rest of linalg, after phase 11 with its operators freed: (a)
+   eigsh(k=6, 'LM') on phase 3's 6000^2 Laplacian for 3 thick-restart
+   cycles (dia_spmv_packed), twice bit for bit, one host fetch a cycle
+   (the first run adds the DIA layout's build; the second runs under
+   ``fetches_only`` from its start), its Ritz values inside LaplacianNd's closed-form spectrum, each
+   residual estimate against the true residual, and eigsh at 100^2 in f64
+   against the closed form; (b) expm_multiply at t = dx^2 on the (3000,
+   3000) sine mode and its time grid against e^(t lambda) u0, the
+   products made against the two-term test's count, norm and onenormest
+   against the closed forms, matrix_power(A, 3) at 2000^2 against three
+   products; (c) LaplacianNd((6000, 6000)): matvec equal to tosparse() @ x;
+   (d) svds(k=6) on skewed_nonsym_csr(2**21) under spmv_mode 'sell'
+   (sell_chunk_spmv on A and A^T) for 3 cycles with true residuals, each
+   ||A^T u - s v|| / s within 1e-4, and at 2**13 in f64 against scipy;
+   lobpcg on the 1000^2 Laplacian against the same call on CPU tensors,
+   and eigs on the 1000^2 convection-diffusion operator, with true
+   residuals; (e) splu
+   at 256^2 in f64 (the native factor, triangular solves on the card),
+   spilu (ILU(0)) at 1000^2 as a loop and as a CUDA graph (bit for bit)
+   and as gmres's M (its device events an apply: 2 K times the events of
+   a step of splu's solve, by torch.profiler), a 10^6-row tridiagonal ILU,
+   dense splu/inv/expm at 2048 against scipy.
 
 Each of the six paths (3, 5, 6, 7, 8, 9), each of phase 10's three
-operators and phase 11 runs with every kernel's launch counter set to 0
+operators, phase 11 and each of phase 12's six parts runs with every
+kernel's launch counter set to 0
 just before it and read just after; each kernel of the path must have
 launched. The
 kernels line reports each kernel's launches summed over the paths that
@@ -102,6 +125,7 @@ power limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import subprocess
@@ -2137,6 +2161,516 @@ def core_ops(dev, n_mb: int = 2**22, w: int = 11, reps: int = 10, m_rand: int = 
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the rest of linalg
+# ---------------------------------------------------------------------------
+def pde_laplacian(dev, grid: int, dtype=np.float32):
+    """pde.py's grid^2 Laplacian built as pde.py builds it (diags -> tocsc
+    -> .T -> tocsr), its scale a = 1/dx^2 as stored, and its closed-form
+    spectrum (lo, hi): LaplacianNd's 1-D Dirichlet extremes, twice, times a
+    (the stored operator is exactly a times the integer stencil)."""
+    import sparse_tpu_torch as sparse
+    from sparse_tpu_torch.linalg import LaplacianNd
+
+    diagonals, offsets, n = laplacian_diagonals(grid + 2, grid + 2, dtype=dtype)
+    A = sparse.diags(diagonals, offsets, shape=(n, n), dtype=dtype, device=dev).tocsc().T.tocsr()
+    a = float(diagonals[1][0])
+    lam1 = LaplacianNd((grid,), boundary_conditions="dirichlet").eigenvalues()
+    return A, a, (2 * a * lam1[0], 2 * a * lam1[-1])
+
+
+def reorth_bytes(n: int, itemsize: int, cycles) -> int:
+    """Bytes eigsh's full reorthogonalization reads over ``cycles``
+    ((start, ncv) pairs): step j reads basis rows 0..j twice (the
+    projection and the update)."""
+    return sum(2 * (j + 1) * n * itemsize for start, ncv in cycles for j in range(start, ncv))
+
+
+def spectra(dev, grid: int, small: int = 100, cycles: int = 3, k: int = 6):
+    """Phase 12a: eigsh(k, 'LM') on phase 3's grid^2 Laplacian (f32) for a
+    fixed ``cycles`` thick-restart cycles (maxiter: the products of the
+    first cycles plus one), twice bit for bit; ms a cycle, products a
+    second, the products' share of a cycle, HOST_SYNCS a cycle (1: the
+    first run adds the DIA layout's build, the second runs under
+    ``fetches_only`` from its start, so any other sync fails it); every
+    Ritz value inside the closed-form spectrum; each residual estimate
+    |beta s_last| against the true ||A y - theta y|| (one product each).
+    Then eigsh at small^2 in f64 against the closed form, 1e-8 relative."""
+    import torch
+    from sparse_tpu_torch import hostsync, linalg
+    from sparse_tpu_torch.kernels import dia_spmv as D
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    eps = float(np.finfo(np.float32).eps)
+    print(f"phase 12a: eigsh(k={k}, which='LM') on pde.py's {grid}^2 Laplacian (float32), "
+          f"{cycles} thick-restart cycles", flush=True)
+    A, _, (lo, hi) = pde_laplacian(dev, grid)
+    n = A.shape[0]
+    ncv = min(max(2 * k + 1, 20), n)
+    maxiter = ncv + (cycles - 2) * (ncv - k) + 1  # cycle 1 makes ncv products, then ncv - k
+    runs = []
+    for rep in range(2):
+        stats = {}
+        hostsync.HOST_SYNCS = 0
+        before = D.dia_spmv_packed.launches
+        with fetches_only(dev, from_start=True) if rep else contextlib.nullcontext():
+            (w, V), secs = timed(dev, lambda: linalg.eigsh(A, k=k, which="LM", maxiter=maxiter,
+                                                            _stats=stats))
+        runs.append((w, V, stats, secs, hostsync.HOST_SYNCS, D.dia_spmv_packed.launches - before))
+        print(f"  run {rep}: {stats['cycles']} cycles, {stats['matvecs']} products in {secs:.4f} s "
+              f"({secs / stats['cycles'] * 1e3:.3f} ms a cycle, {stats['matvecs'] / secs:.1f} "
+              f"products/s); HOST_SYNCS {runs[-1][4]}; dia_spmv_packed launches {runs[-1][5]}; "
+              f"final ncv {stats['ncv']}", flush=True)
+    (w, V, stats, secs, syncs, launched), (w2, V2) = runs[1], runs[0][:2]
+    check(runs[0][4] == cycles + 1, f"the first run makes {runs[0][4]} host fetches: one a cycle "
+          f"and one for the DIA layout's build (csr._maybe_dia, once a matrix)")
+    check(stats["cycles"] == cycles and syncs == cycles
+          and (launched == stats["matvecs"] or dev != "cuda"),
+          f"{cycles} cycles, one host fetch each ({syncs}) and no other sync (fetches_only from "
+          f"the start), one dia_spmv_packed launch a product")
+    check(bool(np.array_equal(w, w2)) and bool(torch.equal(V, V2)),
+          "two eigsh runs give bit-identical Ritz values and vectors")
+    x = V[:, 0].contiguous()
+    spmv_ms = cuda_ms(lambda: A @ x, 20, sync) if dev == "cuda" else float("nan")
+    rb = reorth_bytes(n, 4, [(0, ncv)] + [(k, ncv)] * (cycles - 2) + [(k, stats["ncv"])])
+    cyc_ms = secs / cycles * 1e3
+    prod_ms = spmv_ms * stats["matvecs"] / cycles
+    print(f"  a cycle {cyc_ms:.3f} ms: products {prod_ms:.3f} ms ({stats['matvecs'] / cycles:.1f} x "
+          f"{spmv_ms:.4f} ms, share {prod_ms / cyc_ms:.3f}); the reorthogonalization reads "
+          f"{rb / cycles / 1e9:.2f} GB a cycle of the [{ncv}, {n}] basis "
+          f"({ncv * n * 4 / 1e9:.2f} GB; {rb / cycles / 3.35e12 * 1e3:.3f} ms at 3.35 TB/s)",
+          flush=True)
+    margin = 16 * eps * abs(lo)
+    check(bool(np.all((w >= lo - margin) & (w <= hi + margin))),
+          f"Ritz values {np.sort(w)} inside the closed-form spectrum [{lo:.8g}, {hi:.8g}] "
+          f"(+- 16 eps |lo|)")
+    true = []
+    for i in range(k):
+        y = V[:, i].contiguous()
+        true.append(float(torch.linalg.vector_norm((A @ y).double() - float(w[i]) * y.double())))
+    true, est = np.array(true), np.asarray(stats["resid"])
+    floor = 64 * eps * abs(lo)  # f32 rounding of A y and of y itself (||y|| = 1)
+    print(f"  residuals: estimate |beta s_last| {est} vs true ||A y - theta y|| {true} "
+          f"(floor {floor:.4g})", flush=True)
+    check(bool(np.all(np.abs(true - est) <= 0.02 * est + floor)),
+          "each residual estimate agrees with the true residual within 2% + 64 eps |lo|")
+    As, a_s, _ = pde_laplacian(dev, small, np.float64)
+    ws, _ = linalg.eigsh(As, k=k, which="LM")
+    lam1 = linalg.LaplacianNd((small,), boundary_conditions="dirichlet").eigenvalues()
+    full = np.sort((lam1[:, None] + lam1[None, :]).ravel()) * a_s
+    rel = float(np.max(np.abs(np.sort(ws) - full[:k]) / np.abs(full[:k])))
+    check(rel <= 1e-8, f"eigsh(k={k}) at {small}^2 (float64): the eigenvalues of largest "
+          f"magnitude within {rel:.3g} of the closed form (bound 1e-8)")
+    return dict(grid=grid, cycles=stats["cycles"], matvecs=stats["matvecs"], s=secs,
+                ms_per_cycle=cyc_ms, products_per_s=stats["matvecs"] / secs, spmv_ms=spmv_ms,
+                products_share=prod_ms / cyc_ms, reorth_gb_per_cycle=rb / cycles / 1e9,
+                host_syncs_per_cycle=syncs / cycles, ritz=np.asarray(w).tolist(),
+                true_resid=true.tolist(), est_resid=est.tolist(), small_rel_err=rel)
+
+
+def dirichlet_mode(grid: int, k: int):
+    """The (k, k) Dirichlet sine mode of the grid^2 Laplacian (unit norm,
+    f32, built on the host) and its eigenvalue over a: twice LaplacianNd's
+    1-D eigenvalue of mode k."""
+    from sparse_tpu_torch._laplacian import _eigvals_1d
+
+    v = np.sin(np.pi * k * np.arange(1, grid + 1) / (grid + 1))
+    v /= np.linalg.norm(v)
+    return np.outer(v, v).astype(np.float32).reshape(-1), 2 * _eigvals_1d(grid, "dirichlet")[k - 1]
+
+
+def matrix_functions(dev, grid: int, power_grid: int = 2000):
+    """Phase 12b: on phase 3's grid^2 Laplacian (f32), ||A||_1 = 8 a
+    (a = 1/dx^2), so t = dx^2 gives ||tA||_1 = 8 and (m, s) = (40, 1).
+    expm_multiply(A, u0, t) with u0 the (grid/2, grid/2) sine mode
+    (t lambda ~ -4) against e^{t lambda} u0, and the time grid (0, t, 5
+    points), in f32 to eps e^{||tA||_1} ||u0|| (the rounding of the
+    series' largest partial sums); the products made against the two-term
+    test's count. norm (fro, 1, inf) and onenormest (exact; an operator's
+    estimate and its certificate) against the closed forms.
+    matrix_power(A, 3) at power_grid^2: (A^3) x against A (A (A x)) within
+    32 eps |A|^3 |x|, with its peak memory."""
+    import torch
+    import sparse_tpu_torch as sparse
+    from sparse_tpu_torch import linalg
+    from sparse_tpu_torch.kernels import dia_spmv as D
+
+    eps = float(np.finfo(np.float32).eps)
+    print(f"phase 12b: expm_multiply, norm, onenormest on the {grid}^2 Laplacian, "
+          f"matrix_power at {power_grid}^2 (float32)", flush=True)
+    A, a, _ = pde_laplacian(dev, grid)
+    n = A.shape[0]
+    t = 1.0 / a
+    u0_np, lam = dirichlet_mode(grid, grid // 2)
+    u0 = torch.tensor(u0_np, device=dev)
+    bound = eps * np.exp(8.0)  # ||tA||_1 = 8
+    out = {"grid": grid, "t_lambda": lam}
+    stats = {}
+    before = D.dia_spmv_packed.launches
+    F, secs = timed(dev, lambda: linalg.expm_multiply(A, u0, t=t, _stats=stats))
+    made = D.dia_spmv_packed.launches - before
+    err = float(torch.linalg.vector_norm(F.double() - np.exp(lam) * u0.double()))
+    (m_, s_, terms), = stats["stages"]
+    print(f"  expm_multiply(A, u0, t=dx^2): (m, s) = ({m_}, {s_}), {terms} terms by the two-term "
+          f"test, {made} products made, {secs:.4f} s; ||F - e^(t lambda) u0|| = {err:.4g} "
+          f"(e^(t lambda) = {np.exp(lam):.6g})", flush=True)
+    check((m_, s_) == (40, 1) and (made >= terms or dev != "cuda") and err <= bound,
+          f"(m, s) = (40, 1), at least the test's terms as products, within eps e^8 = "
+          f"{bound:.3g} of e^(t lambda) u0")
+    out.update(expm_s=secs, m=m_, s=s_, terms=terms, products=made, expm_err=err)
+    stats = {}
+    before = D.dia_spmv_packed.launches
+    G, gsecs = timed(dev, lambda: linalg.expm_multiply(A, u0, start=0.0, stop=t, num=5,
+                                                        _stats=stats))
+    made = D.dia_spmv_packed.launches - before
+    fr = np.linspace(0.0, 1.0, 5)
+    errs = [float(torch.linalg.vector_norm(G[i].double() - np.exp(lam * fr[i]) * u0.double()))
+            for i in range(5)]
+    terms = sum(stage[2] for stage in stats["stages"])
+    print(f"  time grid (0, dx^2, 5 points): stages (m, s, terms) {stats['stages']}, {made} "
+          f"products made against {terms} by the test, {gsecs:.4f} s; errors {errs}", flush=True)
+    check(tuple(G.shape) == (5, n) and max(errs) <= bound,
+          f"every grid point within eps e^8 = {bound:.3g} of its closed form")
+    out.update(grid_s=gsecs, grid_products=made, grid_terms=terms, grid_errs=errs)
+    del F, G
+
+    g = grid
+    fro = a * np.sqrt(16.0 * g * g + 4.0 * g * (g - 1))  # 4a on the diagonal, a a neighbor
+    got = {o: float(linalg.norm(A, ord=o)) for o in ("fro", 1, np.inf)}
+    want = {"fro": fro, 1: 8 * a, np.inf: 8 * a}
+    rel = {str(o): abs(got[o] - want[o]) / want[o] for o in got}
+    print(f"  norm: {got} against {want}: relative {rel}", flush=True)
+    check(rel["fro"] <= 1e-5 and rel["1"] <= 8 * eps and rel["inf"] <= 8 * eps,
+          "norm: fro within 1e-5, 1 and inf within 8 eps of the closed forms")
+    est = linalg.onenormest(A)
+    op = linalg.aslinearoperator(A)
+    est_op, v, wv = linalg.onenormest(op, compute_v=True, compute_w=True)
+    j = int(torch.argmax(v.abs()))
+    ix, iy = j % g, j // g
+    col_j = a * (4 + (ix > 0) + (ix < g - 1) + (iy > 0) + (iy < g - 1))
+    print(f"  onenormest: exact {est:.8g} (8a = {8 * a:.8g}); operator estimate {est_op:.8g}, "
+          f"certificate column {j} (||A e_j||_1 = {col_j:.8g})", flush=True)
+    check(abs(est - 8 * a) <= 8 * eps * 8 * a, "the exact 1-norm is 8a")
+    check(abs(est_op - col_j) <= 8 * eps * col_j and est_op <= 8 * a * (1 + 8 * eps)
+          and abs(est_op - float(wv.abs().sum())) <= 8 * eps * col_j,
+          "the operator estimate is ||A e_j||_1 of its certificate column, at most ||A||_1")
+    out.update(norms={str(o): v_ for o, v_ in got.items()}, onenormest=est,
+               onenormest_op=est_op, onenormest_col=j)
+    del A, op, v, wv
+
+    P, _, _ = pde_laplacian(dev, power_grid)
+    x = torch.tensor(np.random.default_rng(31).uniform(-1, 1, P.shape[0]).astype(np.float32),
+                     device=dev)
+    base = 0
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    P3, psecs = timed(dev, lambda: linalg.matrix_power(P, 3))
+    peak = (torch.cuda.max_memory_allocated() - base) if dev == "cuda" else 0
+    y3 = P3 @ x
+    y1 = P @ (P @ (P @ x))
+    Pa = sparse.csr_array((P.data.abs(), P.indices, P.indptr), shape=P.shape)
+    bound = (Pa @ (Pa @ (Pa @ x.abs()))).double()
+    diff = (y3.double() - y1.double()).abs()
+    print(f"  matrix_power(A, 3) at {power_grid}^2: {P3} in {psecs:.4f} s, peak {peak / 2**30:.2f} "
+          f"GiB over the operands; max |A^3 x - A (A (A x))| / (|A|^3 |x|) "
+          f"{float((diff / bound).max()):.3g}", flush=True)
+    check(bool((diff <= 32 * eps * bound).all()),
+          "(A^3) @ x equals A @ (A @ (A @ x)) within 32 eps |A|^3 |x|")
+    out.update(power_s=psecs, power_peak_gib=peak / 2**30, power_nnz=P3.nnz)
+    return out
+
+
+def laplacian_nd(dev, grid: int):
+    """Phase 12c: LaplacianNd((grid, grid), 'dirichlet', float32): matvec
+    (plain torch shifts) against tosparse() @ x (kronsum, then the DIA
+    kernel) on an integer-valued x, where every sum is exact: equal."""
+    import torch
+    from sparse_tpu_torch import linalg
+
+    print(f"phase 12c: LaplacianNd(({grid}, {grid}), 'dirichlet', float32)", flush=True)
+    L = linalg.LaplacianNd((grid, grid), boundary_conditions="dirichlet", dtype=np.float32,
+                           device=dev)
+    x = torch.tensor(np.random.default_rng(37).integers(-8, 9, grid * grid).astype(np.float32),
+                     device=dev)
+    y, mv_s = timed(dev, lambda: L.matvec(x))
+    S, build_s = timed(dev, L.tosparse)
+    ys, sp_s = timed(dev, lambda: S @ x)
+    print(f"  matvec {mv_s:.4f} s; tosparse {S} in {build_s:.4f} s; tosparse() @ x {sp_s:.4f} s",
+          flush=True)
+    check(bool(torch.equal(y, ys)), "matvec equals tosparse() @ x bit for bit")
+    return dict(grid=grid, matvec_s=mv_s, tosparse_s=build_s, product_s=sp_s, nnz=S.nnz)
+
+
+def svds_general(dev, m: int, small_m: int, cycles: int = 3, k: int = 6):
+    """Phase 12d (i): svds(k) on skewed_nonsym_csr(m) (f32) under spmv_mode
+    'sell' (the A and A^T products through sell_chunk_spmv) for ``cycles``
+    Lanczos cycles, timed, with each triplet's true residuals: ||A v - s u||
+    is small by construction (U = A V / s), ||A^T u - s v|| / s is eigsh's
+    relative residual on A^T A, held to 1e-4 (f32 Lanczos after 3 cycles;
+    a wrong product leaves O(1)); svds at small_m in f64 against
+    scipy.sparse.linalg.svds on the host, 1e-6 relative."""
+    import scipy.sparse.linalg as sla
+    import torch
+    import sparse_tpu_torch as sparse
+    from sparse_tpu_torch import linalg
+
+    t0 = time.perf_counter()
+    A_s = skewed_nonsym_csr(m)
+    host_s = time.perf_counter() - t0
+    print(f"phase 12d: svds(k={k}) on skewed_nonsym_csr({m}) (float32, nnz {A_s.nnz}, built on the "
+          f"host in {host_s:.2f} s), spmv_mode 'sell', {cycles} Lanczos cycles", flush=True)
+    prev = sparse.settings.spmv_mode
+    sparse.settings.spmv_mode = "sell"
+    try:
+        A = sparse.csr_array(A_s, device=dev)
+        del A_s
+        ncv = max(2 * k + 1, 20)
+        maxiter = ncv + (cycles - 2) * (ncv - k) + 1
+        (U, s, Vh), secs = timed(dev, lambda: linalg.svds(A, k=k, maxiter=maxiter))
+        res = []
+        for i in range(k):
+            u, v = U[:, i].contiguous(), Vh[i].contiguous()
+            res.append((float(torch.linalg.vector_norm(A @ v - float(s[i]) * u)),
+                        float(torch.linalg.vector_norm(A.T @ u - float(s[i]) * v))))
+        print(f"  {secs:.4f} s; sigma {s}; (||A v - s u||, ||A^T u - s v||) {res}", flush=True)
+        check(bool(np.all(np.isfinite(s))) and bool(np.all(np.diff(s) <= 0)) and s[-1] > 0
+              and bool(np.all(np.isfinite(res))), "finite, positive, descending singular values")
+        adj = max(r[1] / float(si) for r, si in zip(res, s))
+        check(adj <= 1e-4, f"every ||A^T u - s v|| / s within 1e-4 ({adj:.3g})")
+        B_s = skewed_nonsym_csr(small_m).astype(np.float64)
+        sb = linalg.svds(sparse.csr_array(B_s, device=dev), k=k, return_singular_vectors=False)
+        ref = np.sort(sla.svds(B_s, k=k, return_singular_vectors=False))[::-1]
+        rel = float(np.max(np.abs(sb - ref) / ref))
+        check(rel <= 1e-6, f"svds(k={k}) at m = {small_m} (float64) within {rel:.3g} of scipy's "
+              f"(bound 1e-6)")
+    finally:
+        sparse.settings.spmv_mode = prev
+    return dict(m=m, s=secs, sigma=np.asarray(s).tolist(), residuals=res, adjoint_rel=adj,
+                small_rel=rel)
+
+
+def lobpcg_eigs(dev, grid: int, k_lob: int = 4, lob_iters: int = 20, k: int = 6,
+                eigs_tol: float = 1e-4, eigs_restarts: int = 300):
+    """Phase 12d (ii): lobpcg (k_lob vectors, lob_iters iterations) on the
+    grid^2 Laplacian (f32; its block products are matmat, which has no
+    kernel), timed, with true residuals, held against the same call on CPU
+    tensors (the plain products; same X0): Ritz values within 1e-4
+    relative, |X_cpu^T X| within 1e-2 of I (at 1000^2 the CPU's f32 and f64
+    runs differ by 1.7e-6 and 3.1e-4, one iteration more moves the values
+    by 9%); and eigs(k) on the grid^2 upwind convection-diffusion operator
+    (f32; a complex product is two real DIA products) to ``eigs_tol``:
+    timed, with true residuals."""
+    import torch
+    import sparse_tpu_torch as sparse
+    from sparse_tpu_torch import linalg
+
+    print(f"phase 12d: lobpcg(k={k_lob}, {lob_iters} iterations) on the {grid}^2 Laplacian, "
+          f"eigs(k={k}, tol={eigs_tol}) on the {grid}^2 convection-diffusion operator (float32)",
+          flush=True)
+    A, _, (lo, hi) = pde_laplacian(dev, grid)
+    n = A.shape[0]
+    X0 = np.random.default_rng(41).standard_normal((n, k_lob)).astype(np.float32)
+    (lam, X), lsecs = timed(dev, lambda: linalg.lobpcg(A, X0, maxiter=lob_iters, tol=0.0))
+    Xd = torch.tensor(X, device=dev)
+    lres = [float(torch.linalg.vector_norm(A @ Xd[:, i].contiguous() - float(lam[i]) * Xd[:, i]))
+            / abs(float(lam[i])) for i in range(k_lob)]
+    print(f"  lobpcg: {lsecs:.4f} s; lambda {lam}; ||A x - lambda x|| / |lambda| {lres}",
+          flush=True)
+    check(bool(np.all((lam >= lo * (1 + 1e-6)) & (lam <= hi * (1 - 1e-6))))
+          and bool(np.all(np.isfinite(lres))), "lobpcg's Ritz values inside the spectrum")
+    Ac, _, _ = pde_laplacian("cpu", grid)
+    (lam_c, X_c), csecs = timed("cpu", lambda: linalg.lobpcg(Ac, X0, maxiter=lob_iters, tol=0.0))
+    lrel = float(np.max(np.abs(lam - lam_c) / np.abs(lam_c)))
+    vdiff = float(np.max(np.abs(np.abs(X_c.astype(np.float64).T @ X.astype(np.float64))
+                                - np.eye(k_lob))))
+    print(f"  lobpcg on CPU tensors (the plain products): {csecs:.4f} s; lambda {lam_c}; the "
+          f"card's within {lrel:.3g} relative, |X_cpu^T X| within {vdiff:.3g} of I", flush=True)
+    check(lrel <= 1e-4 and vdiff <= 1e-2,
+          "lobpcg on the card equals the CPU's: Ritz values within 1e-4, vectors within 1e-2")
+    del A, Ac, Xd
+    diagonals, offsets, n = convection_diffusion_diagonals(grid, grid)
+    C = sparse.diags(diagonals, offsets, shape=(n, n), dtype=np.float32, device=dev).tocsc().T
+    C = C.tocsr()
+    (vals, vecs), esecs = timed(dev, lambda: linalg.eigs(C, k=k, tol=eigs_tol,
+                                                        maxiter=eigs_restarts))
+    V = torch.tensor(vecs, device=dev)
+    eres = []
+    for i in range(k):
+        v = V[:, i]
+        Av = torch.complex(C @ v.real.contiguous(), C @ v.imag.contiguous())
+        eres.append(float(torch.linalg.vector_norm(Av - complex(vals[i]) * v)) / abs(vals[i]))
+    print(f"  eigs: {esecs:.4f} s; lambda {vals}; ||A v - lambda v|| / |lambda| {eres}", flush=True)
+    check(bool(np.all(np.array(eres) <= 10 * eigs_tol)),
+          "eigs' true residuals within 10 tol (its own gate)")
+    return dict(lobpcg_s=lsecs, lobpcg_lambda=np.asarray(lam).tolist(), lobpcg_resid=lres,
+                lobpcg_cpu_s=csecs, lobpcg_cpu_rel=lrel, lobpcg_cpu_vec=vdiff,
+                eigs_s=esecs, eigs_lambda=[[float(v.real), float(v.imag)] for v in vals],
+                eigs_resid=eres)
+
+
+def kernel_launches(fn) -> int:
+    """The device events (kernels and memory operations) one call of ``fn``
+    makes, by torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+
+def direct_solvers(dev, lu_grid: int = 256, ilu_grid: int = 1000, tri_n: int = 10**6,
+                   dense_n: int = 2048, gmres_cycles: int = 1):
+    """Phase 12e: splu of the lu_grid^2 Laplacian in f64 (the native
+    factor, then triangular solves on the card: a loop, a capture, a
+    replay), residual <= 1e-10, and the device events of a step (by
+    torch.profiler, on its L solve as a loop); spilu (ILU(0)) of the ilu_grid^2
+    convection-diffusion operator in f32, one apply as a loop and as a
+    CUDA graph (bit for bit, timed; its device events counted as 2 K times
+    splu's events a step, the same step code), as gmres's M
+    (restart 20, tol 1e-6 ||b||) for gmres_cycles cycles against gmres
+    without M for as many, and without M to the tolerance (an apply takes
+    a graph replay of 2 K sequential steps, so ILU-preconditioned gmres to
+    1e-6 here, ~1500 iterations, would take ~1000 s); the tri_n-row
+    tridiagonal ILU, whose one-shot solve (a loop) is S^-1 b; dense splu,
+    inv and expm at dense_n against scipy."""
+    import scipy.linalg
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as sla
+    import torch
+    import sparse_tpu_torch as sparse
+    from sparse_tpu_torch import linalg, native
+
+    print(f"phase 12e: direct solvers: splu at {lu_grid}^2 (float64), spilu + gmres at "
+          f"{ilu_grid}^2 (float32), ILU(0) of a {tri_n}-row tridiagonal, dense at n = {dense_n}",
+          flush=True)
+    check(native.lib() is not None, "the native host library is built (the factorizations run)")
+    out = {}
+    A, _, _ = pde_laplacian(dev, lu_grid, np.float64)
+    n = A.shape[0]
+    lu, fsecs = timed(dev, lambda: linalg.splu(A))
+    b = torch.tensor(np.random.default_rng(43).standard_normal(n), device=dev)
+    # the first solve runs the steps as a loop, the second captures graphs
+    (x, first), (_, second), (x3, third) = (timed(dev, lambda: lu.solve(b)) for _ in range(3))
+    rel = float(torch.linalg.vector_norm(b - A @ x) / torch.linalg.vector_norm(b))
+    fill = lu._Lcsc[2].size + lu._Ucsc[2].size
+    steps = lu._Lprep.K
+    events = kernel_launches(lambda: lu._Lprep.apply(b[:, None], graph=False)) \
+        if dev == "cuda" else 0
+    print(f"  splu: mode {lu._mode}, factor {fsecs:.3f} s, nnz(L) + nnz(U) = {fill}; solve "
+          f"{first * 1e3:.2f} ms as a loop, {second * 1e3:.2f} ms capturing, {third * 1e3:.2f} ms "
+          f"replayed (K = {lu._Lprep.K} steps of nb = {lu._Lprep.nb} a factor; its L solve as a loop "
+          f"makes {events} device events, {events / steps:.2f} a step); "
+          f"||b - A x|| / ||b|| = {rel:.3g}", flush=True)
+    check(lu._mode == "sparse" and rel <= 1e-10 and bool(torch.equal(x, x3)),
+          "the sparse splu solves to 1e-10, its graph replay equal to its loop")
+    out["splu"] = dict(n=n, factor_s=fsecs, fill=int(fill), loop_ms=first * 1e3,
+                       capture_ms=second * 1e3, graph_ms=third * 1e3, events=events,
+                       events_per_step=events / steps, rel=rel)
+    del A, lu
+
+    diagonals, offsets, n = convection_diffusion_diagonals(ilu_grid, ilu_grid)
+    C = sparse.diags(diagonals, offsets, shape=(n, n), dtype=np.float32, device=dev).tocsc().T
+    C = C.tocsr()
+    ilu, isecs = timed(dev, lambda: linalg.spilu(C))
+    bc = torch.tensor(np.random.default_rng(47).standard_normal(n).astype(np.float32), device=dev)
+
+    def apply(graph):
+        return ilu._Usolve.apply(ilu._Lsolve.apply(bc[:, None], graph=graph), graph=graph)[:, 0]
+
+    y_loop, loop_s = timed(dev, lambda: apply(False))
+    _, capture_s = timed(dev, lambda: apply(True))  # captures both graphs
+    y_graph, graph_s = timed(dev, lambda: apply(True))
+    check(bool(torch.equal(y_graph, y_loop)), "the graph-replayed apply equals the loop bit for bit")
+    prep = ilu._Lsolve
+    launches = 2 * prep.K * out["splu"]["events_per_step"]
+    print(f"  spilu: factor {isecs:.3f} s; nb {prep.nb}, K {prep.K} steps a triangular solve; one "
+          f"apply (L then U) {loop_s * 1e3:.2f} ms as a loop, {graph_s * 1e3:.2f} ms as a graph "
+          f"(capture {capture_s:.3f} s); device events an apply ~ 2 K x {launches / (2 * prep.K):.2f} "
+          f"(splu's a step) = {launches:.0f}", flush=True)
+    M = linalg.LinearOperator((n, n), matvec=ilu.solve, dtype=torch.float32)
+    M.device = bc.device
+    res = {}
+    for label, kw, cycles in (("M", {"M": M}, gmres_cycles), ("plain", {}, gmres_cycles),
+                              ("plain to tol", {}, 10**4)):
+        (xg, its), gs = timed(dev, lambda: linalg.gmres(C, bc, tol=1e-6, restart=20,
+                                                         maxiter=cycles, **kw))
+        r = float(torch.linalg.vector_norm(bc.double() - (C @ xg).double())
+                  / torch.linalg.vector_norm(bc.double()))
+        res[label] = dict(iters=its, s=gs, rel=r)
+        print(f"  gmres ({label}, restart 20, at most {cycles} cycles): {its} iterations in "
+              f"{gs:.3f} s ({gs / max(its, 1) * 1e3:.2f} ms an iteration), true ||b - A x|| / ||b|| "
+              f"= {r:.4g}", flush=True)
+    check(res["M"]["rel"] < res["plain"]["rel"] and res["plain to tol"]["iters"] < 20 * 10**4,
+          "at equal iterations ILU(0) leaves the smaller residual; without M gmres stops on tol")
+    out["spilu_gmres"] = dict(n=n, factor_s=isecs, nb=prep.nb, K=prep.K, apply_loop_ms=loop_s * 1e3,
+                              apply_graph_ms=graph_s * 1e3, capture_s=capture_s,
+                              apply_events=launches, **res)
+    del C, ilu, M
+
+    S = sp.diags([np.full(tri_n - 1, -1.0), np.full(tri_n, 4.0), np.full(tri_n - 1, -1.0)],
+                 [-1, 0, 1], format="csr")
+    St = sparse.csr_array(S, device=dev)
+    ilu, tsecs = timed(dev, lambda: linalg.spilu(St))
+    bt = torch.ones((tri_n,), dtype=torch.float64, device=dev)
+    xt, tsol = timed(dev, lambda: ilu.solve(bt))
+    rt = float(torch.linalg.vector_norm(St @ xt - bt) / torch.linalg.vector_norm(bt))
+    print(f"  tridiagonal ILU(0) at {tri_n} rows: factor {tsecs:.3f} s, solve (a loop) {tsol:.3f} s "
+          f"(K = {ilu._Lsolve.K}); ||S x - b|| / ||b|| = {rt:.3g}", flush=True)
+    check(rt <= 1e-12, "the tridiagonal ILU(0) solve is S^-1 b (an exact LU) to 1e-12")
+    out["tridiagonal"] = dict(n=tri_n, factor_s=tsecs, solve_s=tsol, rel=rt)
+    del ilu, St, xt
+
+    rng = np.random.default_rng(53)
+    D_s = (sp.random(dense_n, dense_n, 8 / dense_n, random_state=rng)
+           + 4 * sp.identity(dense_n)).tocsr()
+    Dm = sparse.csr_array(D_s, device=dev)
+    bd = rng.standard_normal(dense_n)
+    xd, dsecs = timed(dev, lambda: linalg.splu(Dm).solve(torch.tensor(bd, device=dev)))
+    ref = sla.spsolve(D_s.tocsc(), bd)
+    rel_lu = float(np.linalg.norm(xd.cpu().numpy() - ref) / np.linalg.norm(ref))
+    Ainv, inv_s = timed(dev, lambda: linalg.inv(Dm))
+    ref = np.linalg.inv(D_s.toarray())
+    rel_inv = float(np.linalg.norm(Ainv.toarray().cpu().numpy() - ref) / np.linalg.norm(ref))
+    E_s = (D_s * 0.1).tocsr()
+    E, exp_s = timed(dev, lambda: linalg.expm(sparse.csr_array(E_s, device=dev)))
+    ref = scipy.linalg.expm(E_s.toarray())
+    rel_exp = float(np.linalg.norm(E.toarray().cpu().numpy() - ref) / np.linalg.norm(ref))
+    print(f"  dense at n = {dense_n}: splu + solve {dsecs:.3f} s (rel {rel_lu:.3g}), inv {inv_s:.3f} "
+          f"s (rel {rel_inv:.3g}), expm {exp_s:.3f} s (rel {rel_exp:.3g}) against scipy", flush=True)
+    check(max(rel_lu, rel_inv, rel_exp) <= 1e-10, "dense splu, inv and expm within 1e-10 of scipy")
+    out["dense"] = dict(n=dense_n, splu_s=dsecs, inv_s=inv_s, expm_s=exp_s, rel_lu=rel_lu,
+                        rel_inv=rel_inv, rel_expm=rel_exp)
+    return out
+
+
+def linalg_rest(dev, drive, grid: int = 6000, small: int = 100, power_grid: int = 2000,
+                skew_m: int = 2**21, small_m: int = 2**13, lob_grid: int = 1000,
+                lu_grid: int = 256, tri_n: int = 10**6, dense_n: int = 2048,
+                gmres_cycles: int = 1):
+    """Phase 12 (a)-(e), each operator run by ``drive`` with the launch
+    counters at 0; prints its seconds on the host clock."""
+    t0 = time.perf_counter()
+    dia, sell = ("dia_spmv_packed",), ("sell_chunk_spmv",)
+    out = {"spectra": drive("spectra (12a)", dia, spectra, dev, grid, small)}
+    out["matrix_functions"] = drive("matrix functions (12b)", dia, matrix_functions, dev, grid,
+                                    power_grid)
+    out["laplacian_nd"] = drive("LaplacianNd (12c)", dia, laplacian_nd, dev, grid)
+    out["svds"] = drive("svds (12d)", sell, svds_general, dev, skew_m, small_m)
+    out["lobpcg_eigs"] = drive("lobpcg and eigs (12d)", dia, lobpcg_eigs, dev, lob_grid)
+    out["direct"] = drive("direct solvers (12e)", dia, direct_solvers, dev, lu_grid, lob_grid,
+                          tri_n, dense_n, gmres_cycles)
+    out["s"] = time.perf_counter() - t0
+    print(f"phase 12 took {out['s']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 def timings(dev, A, cg_state, bw, flops):
@@ -2757,6 +3291,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     core = res["drive"]("core ops", ("dia_spmv_packed", "cg_kernel_a", "cg_kernel_b",
                                      "sell_chunk_spmv"), core_ops, "cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rest = linalg_rest("cuda", res["drive"])
     kernels = []
     for name, r in t.items():
         lib = r["library_ms"]
@@ -2779,7 +3316,7 @@ def main() -> int:
     print(json.dumps({"main_path": o, "general_path": g, "batched_path": bo,
                       "flagship_step": res["out_f"], "fused_sweep": sw,
                       "wide_band_path": res["out_w"], "onepass": t["cgcg_kernel"].pop("onepass"),
-                      "krylov": res["out_k"], "core_ops": core}),
+                      "krylov": res["out_k"], "core_ops": core, "linalg_rest": rest}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(res["card"], flush=True)

@@ -1,9 +1,12 @@
-"""Counted device -> host fetches and the device-side while loop.
+"""Counted device -> host fetches, host -> device uploads that do not
+sync, and the device-side while loop.
 
 Every fetch a solver or an op makes on purpose goes through :func:`fetch` (or
 :func:`fetch_int`), which counts it in ``HOST_SYNCS``: reset the counter,
 run a solve or a product, read it. The solvers of ``linalg``, the SpGEMM
-and the union merges of ``ops`` and the tropical MIS share it.
+and the union merges of ``ops`` and the tropical MIS share it. A host
+array a loop sends to the card between two fetches goes through
+:func:`upload`, which queues the copy and does not wait for the card.
 
 :func:`device_while` is the reference's ``lax.while_loop`` on torch
 (``linalg`` and ``ops.tropical`` run it).
@@ -32,6 +35,16 @@ def fetch(x):
 def fetch_int(x) -> int:
     """One counted fetch of an integer scalar."""
     return int(fetch(x))
+
+
+def upload(x, device) -> torch.Tensor:
+    """A host array as a tensor on ``device``. To a CUDA device the copy
+    goes through pinned memory, queued on the current stream: a pageable
+    copy would wait for the card to drain."""
+    t = torch.as_tensor(np.ascontiguousarray(x))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def device_while(cond, body, state, limit: int, count: str = "itn", stats=None, callback=None):

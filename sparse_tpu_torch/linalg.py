@@ -29,6 +29,15 @@ on the card.
 one sparsity pattern (``sparse_tpu_torch.batch.krylov``), and
 ``make_linear_operator`` takes a batched operator as its block-diagonal
 view.
+
+The rest of scipy.sparse.linalg's surface: ``eigsh`` (thick-restart
+Lanczos, each cycle on the device with one host fetch) and ``svds`` on
+its normal operator; ``norm``, ``onenormest``, ``matrix_power`` (SpGEMM)
+and ``expm_multiply`` (Al-Mohy-Higham, each Taylor stage a
+``hostsync.device_while``); ``lobpcg``, ``eigs`` and
+``funm_multiply_krylov`` (``_eigen``); the direct solvers and incomplete
+factorizations (``_direct``); ``LaplacianNd`` (``_laplacian``); and
+scipy's legacy namespaces (``linalg.isolve`` etc.).
 """
 
 from __future__ import annotations
@@ -42,6 +51,27 @@ from . import hostsync, plan_cache
 from .base import SparseArray
 from .config import settings
 from .utils import as_tensor, resolve_device
+from ._direct import (  # noqa: F401  (scipy.sparse.linalg surface)
+    SpILU,
+    SuperLU,
+    expm,
+    factorized,
+    ic0,
+    ilu0,
+    inv,
+    is_sptriangular,
+    spbandwidth,
+    spilu,
+    splu,
+    spsolve_triangular,
+)
+from ._eigen import (  # noqa: F401
+    ArpackError,
+    ArpackNoConvergence,
+    eigs,
+    funm_multiply_krylov,
+    lobpcg,
+)
 
 
 class MatrixRankWarning(UserWarning):
@@ -1461,3 +1491,593 @@ def gcrotmk(A, b, x0=None, tol=1e-5, atol=0.0, maxiter=1000, M=None, callback=No
                     drop = int(np.argmin(scores))
                     recycled = recycled[:drop] + recycled[drop + 1:]
     return x, (0 if _norm_h(b - A.matvec(x)) <= target else int(maxiter))
+
+
+# ---------------------------------------------------------------------------
+# eigsh: thick-restart Lanczos with full reorthogonalization
+# ---------------------------------------------------------------------------
+def _lanczos_factorization(A, V0, start, ncv, rng):
+    """Continue a Lanczos factorization from row ``start`` of ``V0``.
+
+    Rows 0..start of ``V0`` are orthonormal: the locked (thick) Ritz block
+    and the restart residual direction at ``start`` (plain Lanczos is
+    ``start == 0``). Full reorthogonalization against every earlier row
+    makes the thick-restart couplings implicit: the recurrence only sees
+    alpha and beta. The ``ncv - start`` steps run on the device
+    (:func:`_lanczos_device`, in place on ``V0``); the host reads the
+    stacked (alphas, betas) once, which the projected eigh needs anyway. A
+    breakdown (an invariant subspace, beta < 1e-12) is redone step by step
+    (:func:`_lanczos_redo`) with a random restart vector.
+
+    Returns (V, alphas, betas, vres, nmv): ``vres`` the normalized
+    (ncv+1)-th vector (the next cycle's restart direction) and ``nmv`` the
+    operator applications made."""
+    head = V0[: start + 1].clone()
+    V, alphas, betas, vres = _lanczos_device(A, V0, start, ncv)
+    ab = hostsync.fetch(torch.stack([alphas, betas]))  # the one fetch a cycle
+    alphas, betas = ab[0].astype(np.float64), ab[1].astype(np.float64)
+    if ncv - start > 1 and float(np.min(betas[start: ncv - 1])) < 1e-12:
+        V[: start + 1] = head
+        V[start + 1:] = 0
+        out = _lanczos_redo(A, V, start, ncv, rng)
+        return (*out, 2 * (ncv - start))
+    return V, alphas, betas, vres, ncv - start
+
+
+def _lanczos_device(A, V, start: int, ncv: int):
+    """Lanczos steps ``start..ncv-1`` on the device with no host read,
+    writing the new basis rows into ``V`` [ncv, n]."""
+    dt = V.dtype
+    rdt = _real_dtype(dt)
+    alphas = torch.zeros((ncv,), dtype=rdt, device=V.device)
+    betas = torch.zeros((ncv,), dtype=rdt, device=V.device)
+    vres = torch.zeros_like(V[0])
+    for j in range(start, ncv):
+        w = A.matvec(V[j])
+        a = _vdot(V[j], w).real.to(rdt)
+        alphas[j] = a
+        w = w - a.to(dt) * V[j]
+        if j > start:
+            w = w - betas[j - 1].to(dt) * V[j - 1]
+        Vj = V[: j + 1]
+        w = w - (Vj.conj() @ w) @ Vj  # full reorthogonalization (+ thick couplings)
+        bnorm = torch.linalg.vector_norm(w).to(rdt)
+        betas[j] = bnorm
+        nxt = w / torch.where(bnorm > 0, bnorm, torch.ones_like(bnorm)).to(dt)
+        if j + 1 < ncv:
+            V[j + 1] = nxt
+        else:
+            vres = nxt
+    return V, alphas, betas, vres
+
+
+def _lanczos_redo(A, V, start: int, ncv: int, rng):
+    """The steps of :func:`_lanczos_device` driven from the host, a fetch
+    a step: on a breakdown the next row is a random vector (from ``rng``)
+    orthogonalized against the basis, and its beta is 0."""
+    alphas = np.zeros((ncv,))
+    betas = np.zeros((ncv,))
+    vres = torch.zeros_like(V[0])
+    n = V.shape[1]
+    for j in range(start, ncv):
+        w = A.matvec(V[j])
+        a = float(hostsync.fetch(_vdot(V[j], w).real))
+        alphas[j] = a
+        w = w - a * V[j]
+        if j > start:
+            w = w - betas[j - 1] * V[j - 1]
+        Vj = V[: j + 1]
+        w = w - (Vj.conj() @ w) @ Vj
+        bnorm = float(hostsync.fetch(torch.linalg.vector_norm(w)))
+        betas[j] = bnorm
+        if bnorm < 1e-12:
+            vv = hostsync.upload(rng.standard_normal(n), V.device).to(V.dtype)
+            vv = vv - (Vj.conj() @ vv) @ Vj
+            vv = vv / torch.linalg.vector_norm(vv)
+            betas[j] = 0.0
+            nxt = vv
+        else:
+            nxt = w / bnorm
+        if j + 1 < ncv:
+            V[j + 1] = nxt
+        else:
+            vres = nxt
+    return V, alphas, betas, vres
+
+
+def _select_ritz(w_all, which, k):
+    if which in ("LM", "LA"):
+        sel = np.argsort(np.abs(w_all) if which == "LM" else w_all)[::-1][:k]
+    elif which in ("SM", "SA"):
+        sel = np.argsort(np.abs(w_all) if which == "SM" else w_all)[:k]
+    else:
+        raise ValueError(f"unknown which={which}")
+    return np.sort(sel)
+
+
+def eigsh(A, k=6, which="LM", v0=None, maxiter=None, tol=0.0, return_eigenvectors=True,
+          _stats=None):
+    """Symmetric (Hermitian) eigenpairs by thick-restart Lanczos (Wu &
+    Simon) with full reorthogonalization, on the operator's device.
+
+    Each cycle continues the factorization past the locked Ritz block
+    (:func:`_lanczos_factorization`: ``ncv - l`` steps on the device, one
+    host fetch); the projected matrix, diag(locked thetas) + an arrowhead
+    of couplings + the new tridiagonal block, is solved on the host. The
+    Ritz residual estimates |beta_m s[last]| gate convergence against
+    ``tol`` (0: 10 eps of the basis dtype) relative to the largest |theta|,
+    up to ``maxiter`` operator applications; a cycle whose worst residual
+    fails to halve doubles ``ncv``. The basis dtype is
+    result_type(A, v0, float32), and the start vector is
+    ``np.random.default_rng(0)``'s. The host's arrays (the start vector,
+    the restart's Ritz coefficients) reach the device through
+    :func:`hostsync.upload`, so a cycle waits on the device only at its
+    fetch. Returns (w, V), w ascending in the
+    selected order as host numpy and V [n, k] on the device. A ``_stats``
+    dict receives the cycles, operator applications, final ``ncv`` and the
+    last cycle's residual estimates of the returned pairs."""
+    A = make_linear_operator(A)
+    dev = _operator_device(A, v0)
+    n = A.shape[0]
+    k = min(k, n - 1) if n > 1 else 1
+    ncv = min(max(2 * k + 1, 20), n)
+    if maxiter is None:
+        maxiter = 10 * n
+    rng = np.random.default_rng(0)
+    # a Hermitian complex A needs a complex basis: a real one would
+    # project onto Re(A)'s action
+    dt = torch.promote_types(A.dtype, torch.float32)
+    if v0 is not None:
+        v0 = as_tensor(v0, dev)
+        dt = torch.promote_types(dt, v0.dtype)
+    if not (dt.is_floating_point or dt.is_complex):
+        dt = torch.float32
+    v = (hostsync.upload(rng.standard_normal(n), dev) if v0 is None else v0).to(dt)
+    v = v / torch.linalg.vector_norm(v)
+    eff_tol = tol if tol > 0 else float(torch.finfo(_real_dtype(dt)).eps) * 10
+    matvecs = 0
+    w = s_sel = V = None
+    thetas = barr = None  # locked Ritz values and their arrowhead couplings
+    l = 0  # thick block size (0: the plain first cycle)
+    V0 = torch.zeros((ncv, n), dtype=dt, device=dev)
+    V0[0] = v
+    prev_worst = np.inf
+    cycles = 0
+    while matvecs < int(maxiter) or w is None:
+        V, alphas, betas, vres, nmv = _lanczos_factorization(A, V0, l, ncv, rng)
+        del V0
+        matvecs += nmv
+        cycles += 1
+        T = np.zeros((ncv, ncv))
+        if l:
+            T[:l, :l] = np.diag(thetas)
+            T[:l, l] = barr
+            T[l, :l] = barr
+        aa, bb = alphas[l:], betas[l: ncv - 1]
+        T[l:, l:] = np.diag(aa)
+        if bb.size:
+            T[l:, l:] += np.diag(bb, 1) + np.diag(bb, -1)
+        w_all, s_full = np.linalg.eigh(T)
+        sel = _select_ritz(w_all, which, k)
+        w = w_all[sel]
+        s_sel = s_full[:, sel]
+        resid = np.abs(betas[ncv - 1]) * np.abs(s_sel[-1, :])
+        if _stats is not None:
+            _stats.update(cycles=cycles, matvecs=matvecs, ncv=ncv, resid=resid)
+        scale = max(np.max(np.abs(w_all)), 1e-30)
+        if np.all(resid <= eff_tol * scale) or ncv >= n:
+            break
+        worst = float(np.max(resid))
+        if worst > 0.5 * prev_worst:  # a stall: grow the basis (ncv == n is exact)
+            ncv = min(2 * ncv, n)
+        prev_worst = worst
+        # thick restart: lock the k wanted Ritz vectors, the residual
+        # direction right after them
+        l = min(k, ncv - 2)
+        lock = s_full[:, sel[:l]]
+        Y = hostsync.upload(lock.T, dev).to(dt) @ V  # [l, n] locked Ritz block
+        thetas = w_all[sel[:l]]
+        barr = betas[V.shape[0] - 1] * np.real(lock[-1, :])
+        V0 = torch.zeros((ncv, n), dtype=dt, device=dev)
+        V0[:l] = Y
+        V0[l] = vres
+        del Y
+    if not return_eigenvectors:
+        return w
+    Y = hostsync.upload(s_sel.T, dev).to(dt) @ V  # [k, n]
+    return w, Y.T
+
+
+# ---------------------------------------------------------------------------
+# norms, powers and the action of the exponential
+# ---------------------------------------------------------------------------
+def norm(A, ord=None, axis=None):
+    """Sparse matrix and vector norms (scipy.sparse.linalg.norm): Frobenius
+    (default), ord in {1, -1, inf, -inf, 'fro'} for the matrix, the vector
+    norms along one ``axis``; from the stored entries, on A's device. Column
+    sums go through ``ops.elementwise.csr_sum(axis=0)`` (sorted by column,
+    summed in order)."""
+    if not isinstance(A, SparseArray):
+        raise TypeError("norm expects a sparse array")
+    from .ops.elementwise import csr_sum
+
+    C = A.tocsr()
+    data = C.data.abs()
+    indptr, indices = C.indptr, C.indices
+    m, n = C.shape
+    if axis is None:
+        if ord in (None, "fro", "f"):
+            return torch.sqrt(torch.sum(data * data))
+        if ord in (1, -1):
+            sums = csr_sum(indptr, indices, data, C.shape, axis=0)
+        elif ord in (np.inf, -np.inf):
+            sums = csr_sum(indptr, indices, data, C.shape, axis=1)
+        else:
+            raise ValueError(f"invalid norm order {ord!r} for sparse matrices")
+        return sums.max() if ord in (1, np.inf) else sums.min()
+    if axis not in (0, -2, 1, -1):
+        raise ValueError(f"invalid axis {axis}")
+    ax = 0 if axis in (0, -2) else 1
+    if ord in (None, 2):
+        return torch.sqrt(csr_sum(indptr, indices, data * data, C.shape, axis=ax))
+    if ord == 1:
+        return csr_sum(indptr, indices, data, C.shape, axis=ax)
+    if ord == np.inf:
+        from .ops.coords import expand_rows
+
+        ids = indices if ax == 0 else expand_rows(indptr, data.shape[0])
+        # an empty line's norm is 0: the max starts from 0 (data is |.|)
+        return torch.zeros((n if ax == 0 else m,), dtype=data.dtype, device=data.device
+                           ).scatter_reduce(0, ids.to(torch.int64), data, "amax")
+    raise ValueError(f"invalid norm order {ord!r} along an axis")
+
+
+def _onenorm_est(A_op, dt, iters: int = 4):
+    """Higham/Hager 1-norm power estimate of a LinearOperator: alternate
+    x -> y = A x, xi = sign(y), z = A^H xi, x = the unit vector at argmax
+    |z|. A lower bound, tight in practice. Returns (est, j): the estimate
+    and the column of the best unit-vector probe (||A e_j||_1 == est when
+    that probe won; the uniform start never beats the best column)."""
+    n = A_op.shape[1]
+    dev = _operator_device(A_op)
+    x = torch.full((n,), 1.0 / n, dtype=dt, device=dev)
+    est = 0.0
+    best_j = 0
+    cur_j = None  # the unit column x is (None: the uniform start)
+    for it in range(iters):
+        y = A_op.matvec(x)
+        est_new = float(hostsync.fetch(y.abs().sum()))
+        # always take the first move: the uniform start can cancel to 0
+        if it > 0 and est_new <= est:
+            break
+        if est_new >= est and cur_j is not None:
+            best_j = cur_j
+        est = max(est, est_new)
+        ay = y.abs()
+        xi = torch.where(y == 0, torch.ones_like(y), y / torch.where(ay == 0, torch.ones_like(ay), ay)).conj()
+        z = A_op.rmatvec(xi.to(dt))
+        cur_j = hostsync.fetch_int(z.abs().argmax())
+        x = torch.zeros((n,), dtype=dt, device=dev)
+        x[cur_j] = 1.0
+        if it == 0:
+            best_j = cur_j
+    return max(est, 1e-300), best_j
+
+
+def onenormest(A, t: int = 2, itmax: int = 5, compute_v: bool = False, compute_w: bool = False):
+    """The 1-norm of A (scipy.sparse.linalg.onenormest): exact for a sparse
+    array (the column sums of |data| by ``csr_sum(axis=0)``, one fetch),
+    the Higham/Hager estimate for an operator. ``compute_v``/``compute_w``
+    return scipy's certificate: v a unit vector with w = A v and
+    est == ||w||_1."""
+    A_op = make_linear_operator(A)
+    n = A_op.shape[1]
+    dev = _operator_device(A_op)
+    if isinstance(A, SparseArray):
+        from .ops.elementwise import csr_sum
+
+        C = A.tocsr()
+        sums = csr_sum(C.indptr, C.indices, C.data.abs(), C.shape, axis=0)
+        est, j = hostsync.fetch(torch.stack([sums.max().double(), sums.argmax().double()]))
+        est, j = float(est), int(j)
+    else:
+        est, j = _onenorm_est(A_op, A_op.dtype, iters=itmax)
+    if not (compute_v or compute_w):
+        return est
+    v = torch.zeros((n,), dtype=A_op.dtype, device=dev)
+    v[j] = 1.0
+    w = A_op.matvec(v)
+    out = [float(hostsync.fetch(w.abs().sum()))]  # certified: est == ||A v||_1
+    if compute_v:
+        out.append(v)
+    if compute_w:
+        out.append(w)
+    return tuple(out)
+
+
+# Al-Mohy & Higham (2011) theta of the truncated Taylor degrees that
+# expm_multiply's (m*, s) choice takes (the table scipy carries)
+_EXPM_THETA = {
+    5: 2.4e-1, 10: 1.0, 15: 2.2, 20: 3.6, 25: 4.9, 30: 6.3,
+    35: 7.7, 40: 9.1, 45: 10.0, 50: 11.0, 55: 12.0,
+}
+
+
+def matrix_power(A, power: int):
+    """A**power of a square sparse A (scipy.sparse.linalg.matrix_power:
+    non-negative integers) by binary powering over the SpGEMM."""
+    import operator
+
+    from .module import identity
+
+    if not isinstance(A, SparseArray):
+        raise TypeError("matrix_power expects a sparse array")
+    m, n = A.shape
+    if m != n:
+        raise ValueError("matrix_power expects a square matrix")
+    power = operator.index(power)  # rejects 2.5, as scipy
+    if power < 0:
+        raise ValueError("negative powers are not supported (no sparse inv)")
+    if power == 0:
+        return identity(n, dtype=A.dtype, format="csr", device=A.device)
+    result = None
+    base = A.tocsr()
+    while power:
+        if power & 1:
+            result = base if result is None else (result @ base).tocsr()
+        power >>= 1
+        if power:
+            base = (base @ base).tocsr()
+    # power 1 would alias A (csr.tocsr() is self): a copy keeps A safe
+    if result is A or result is A.tocsr():
+        result = result.copy()
+    return result
+
+
+def _expm_dtype(B_dtype, A_dtype, t) -> torch.dtype:
+    """result_type(B, A, t) with t a Python scalar (weak: it only makes a
+    real result complex)."""
+    dt = torch.promote_types(B_dtype, A_dtype)
+    if not (dt.is_floating_point or dt.is_complex):
+        dt = torch.float32
+    if isinstance(t, (complex, np.complexfloating)) and not dt.is_complex:
+        dt = torch.promote_types(dt, torch.complex64)
+    return dt
+
+
+def expm_multiply(A, B, t: float = 1.0, start=None, stop=None, num=None, endpoint=True,
+                  _a1=None, _stats=None):
+    """e^(tA) @ B without forming the exponential (scipy's
+    expm_multiply): truncated Taylor with Al-Mohy & Higham's (m*, s) choice
+    from the 1-norm (exact for a sparse array, estimated for an operator),
+    on A's device. Each of the s stages is one ``hostsync.device_while``
+    of at most m terms with the two-consecutive-term stop: one host fetch
+    a chunk of ``hostsync.CHECK_EVERY`` terms, terms past the stop frozen
+    (their products still run). Complex t*A is fine; B a vector or a
+    matrix.
+
+    scipy's time-grid form: with ``start``/``stop``/``num`` the result is
+    stacked over ``numpy.linspace(start, stop, num, endpoint=endpoint)``,
+    each interval advancing the previous state. A ``_stats`` dict receives
+    each stage's (m, s) and the terms the two-term test let it take
+    (``stages``)."""
+    if start is not None or stop is not None or num is not None:
+        if num is None or stop is None:
+            raise ValueError("the time-grid form needs stop= and num=")
+        if t != 1.0:
+            raise ValueError("t= cannot be combined with the start/stop/num grid form")
+        start = 0.0 if start is None else start
+        ts = np.linspace(start, stop, int(num), endpoint=endpoint)
+        # one 1-norm serves every interval (uniform spacing)
+        A_op0 = make_linear_operator(A)
+        if isinstance(A, SparseArray):
+            a1 = float(hostsync.fetch(norm(A, ord=1).real))
+        else:
+            dev = _operator_device(A_op0, B)
+            dt0 = _expm_dtype(as_tensor(B, dev).dtype, A_op0.dtype, ts[-1].item())
+            a1 = _onenorm_est(A_op0, dt0)[0]
+        out = [expm_multiply(A, B, t=float(ts[0]), _a1=a1, _stats=_stats)]
+        for i in range(1, len(ts)):
+            out.append(expm_multiply(A, out[-1], t=float(ts[i] - ts[i - 1]), _a1=a1,
+                                     _stats=_stats))
+        return torch.stack(out)
+
+    A_op = make_linear_operator(A)
+    B = as_tensor(B, _operator_device(A_op, B))
+    dt = _expm_dtype(B.dtype, A_op.dtype, t)
+    B = B.to(dt)
+    if _a1 is not None:
+        a_norm = _a1 * abs(t)
+    elif isinstance(A, SparseArray):
+        a_norm = float(hostsync.fetch(norm(A, ord=1).real)) * abs(t)
+    else:
+        # an operator: the Higham-style estimate (a product with ones can
+        # cancel, e.g. [[2, -2], [-2, 2]] @ ones == 0)
+        a_norm = _onenorm_est(A_op, dt)[0] * abs(t)
+    if a_norm == 0 or B.numel() == 0:
+        return B
+    best = None  # the smallest cost s * m with ||tA||_1 / s <= theta_m
+    for mdeg, theta in _EXPM_THETA.items():
+        s = max(int(np.ceil(a_norm / theta)), 1)
+        if best is None or s * mdeg < best[0]:
+            best = (s * mdeg, mdeg, s)
+    _, mdeg, s = best
+    rdt = _real_dtype(dt)
+    dev = B.device
+    scale = torch.tensor(t / s, dtype=dt, device=dev)
+    tol = float(torch.finfo(rdt).eps) / 2
+    apply = A_op.matvec if B.ndim == 1 else A_op.matmat
+
+    def cond(st):
+        return (st["j"] <= mdeg) & ~st["done"]
+
+    def body(st):
+        term = apply(st["term"]) * (scale / st["j"].to(dt))
+        out = st["out"] + term
+        # Al-Mohy & Higham's two-consecutive-term test (as scipy): one
+        # dipping term must not stop the series
+        c = term.abs().max()
+        done = (st["c_prev"] + c) <= tol * out.abs().max()
+        return {"term": term, "out": out, "c_prev": c, "j": st["j"] + 1, "done": done}
+
+    F = B
+    for _ in range(s):
+        state = {"term": F, "out": F,
+                 "c_prev": torch.tensor(np.inf, dtype=rdt, device=dev),
+                 "j": torch.ones((), dtype=torch.int64, device=dev),
+                 "done": torch.zeros((), dtype=torch.bool, device=dev)}
+        state, j, _ = hostsync.device_while(cond, body, state, limit=mdeg + 1, count="j")
+        F = state["out"]
+        if _stats is not None:
+            _stats.setdefault("stages", []).append((mdeg, s, j - 1))
+    return F
+
+
+# ---------------------------------------------------------------------------
+# svds: thick-restart Lanczos on the normal operator
+# ---------------------------------------------------------------------------
+def svds(A, k: int = 6, which: str = "LM", return_singular_vectors: bool = True,
+         maxiter=None):
+    """The k largest singular triplets (scipy.sparse.linalg.svds subset:
+    which='LM'; ``maxiter`` is scipy's, the operator applications of the
+    Lanczos run).
+
+    A tall A runs :func:`eigsh` on C = A^H A (a product = A x, then the
+    adjoint product, on the transpose's held CSR), sigma = sqrt(max(eig,
+    0)) and U = A V / sigma; a wide one takes the adjoint. When min(m, n)
+    is no larger than the Lanczos basis would be, a dense SVD is exact and
+    cheaper. Singular values under numpy's rank cutoff are reported as 0
+    with zeroed vectors. Returns (U, s, Vh), s as host numpy."""
+    if which != "LM":
+        raise NotImplementedError("svds supports which='LM'")
+    A_op = make_linear_operator(A)
+    dev = _operator_device(A_op)
+    m, n = A_op.shape
+    if not 1 <= k <= min(m, n) - 1:  # scipy's bound
+        raise ValueError(f"k={k} must satisfy 1 <= k <= min(M, N) - 1 = {min(m, n) - 1}")
+    if m < n:
+        # wide: the svds of the adjoint, mapped back
+        adj = LinearOperator((n, m), matvec=A_op.rmatvec, rmatvec=A_op.matvec, dtype=A_op.dtype)
+        adj.device = dev
+        out = svds(adj, k=k, return_singular_vectors=return_singular_vectors, maxiter=maxiter)
+        if not return_singular_vectors:
+            return out
+        Ua, s, Vha = out
+        return Vha.conj().T, s, Ua.conj().T
+    rdt = _real_dtype(torch.promote_types(A_op.dtype, torch.float32))
+    eps = float(torch.finfo(rdt).eps)
+    if n <= max(2 * k + 1, 20):
+        # the Lanczos basis would span the whole space: a dense SVD is exact
+        dense = A_op.matmat(torch.eye(n, dtype=A_op.dtype, device=dev))
+        U, s, Vh = torch.linalg.svd(dense, full_matrices=False)
+        U, s, Vh = U[:, :k], hostsync.fetch(s[:k]), Vh[:k]
+        cutoff = max(m, n) * eps * (float(s[0]) if len(s) else 0.0)
+        live = s > cutoff
+        s = np.where(live, s, 0.0)
+        if not return_singular_vectors:
+            return s
+    else:
+        C = LinearOperator((n, n), matvec=lambda x: A_op.rmatvec(A_op.matvec(x)),
+                           dtype=A_op.dtype)
+        C.device = dev
+        w, V = eigsh(C, k=k, which="LA", maxiter=maxiter)
+        w = np.maximum(np.asarray(w), 0.0)
+        order = np.argsort(w)[::-1]
+        s = np.sqrt(w[order])
+        # the rank cutoff before the vectors: values under it are zeros and
+        # their vectors junk
+        cutoff = max(m, n) * eps * (float(s[0]) if len(s) else 0.0)
+        live = s > cutoff
+        s = np.where(live, s, 0.0)
+        if not return_singular_vectors:
+            return s
+        V = V[:, torch.as_tensor(order.copy(), device=dev)]
+        safe = torch.as_tensor(np.where(live, np.where(s > 0, s, 1.0), 1.0), device=dev)
+        U = A_op.matmat(V) / safe.to(V.dtype)[None, :]
+        Vh = V.conj().T
+    keep = torch.as_tensor(live.astype(np.float64), device=dev).to(rdt)
+    return U * keep[None, :], s, Vh * keep[:, None]
+
+
+__all__ = [
+    "LinearOperator",
+    "IdentityOperator",
+    "aslinearoperator",
+    "make_linear_operator",
+    "cg",
+    "cgs",
+    "bicg",
+    "bicgstab",
+    "gmres",
+    "lsqr",
+    "eigsh",
+    "spsolve",
+    "cg_axpby",
+    "norm",
+    "expm_multiply",
+    "matrix_power",
+    "svds",
+    "onenormest",
+    "minres",
+    "lsmr",
+    "tfqmr",
+    "qmr",
+    "SuperLU",
+    "splu",
+    "spilu",
+    "SpILU",
+    "ilu0",
+    "ic0",
+    "factorized",
+    "inv",
+    "expm",
+    "spsolve_triangular",
+    "is_sptriangular",
+    "spbandwidth",
+    "eigs",
+    "lobpcg",
+    "LaplacianNd",
+    "ArpackError",
+    "ArpackNoConvergence",
+    "MatrixRankWarning",
+    "use_solver",
+    "lgmres",
+    "gcrotmk",
+    "funm_multiply_krylov",
+]
+
+from ._laplacian import LaplacianNd  # noqa: F401,E402  (imports LinearOperator from here)
+
+
+def _legacy_namespace(name, symbols):
+    """scipy.sparse.linalg's deprecated submodule namespaces
+    (``linalg.isolve.cg`` etc.) as module objects, registered in
+    ``sys.modules`` so that ``from sparse_tpu_torch.linalg.isolve import cg``
+    resolves."""
+    import sys
+    import types
+
+    mod = types.ModuleType(f"{__name__}.{name}")
+    g = globals()
+    for s in symbols:
+        if s in g:
+            setattr(mod, s, g[s])
+    sys.modules[mod.__name__] = mod
+    return mod
+
+
+isolve = _legacy_namespace(
+    "isolve",
+    ["cg", "cgs", "bicg", "bicgstab", "gmres", "lgmres", "gcrotmk", "minres", "qmr", "tfqmr",
+     "lsqr", "lsmr"],
+)
+dsolve = _legacy_namespace(
+    "dsolve",
+    ["spsolve", "splu", "spilu", "factorized", "spsolve_triangular", "MatrixRankWarning",
+     "use_solver"],
+)
+eigen = _legacy_namespace(
+    "eigen", ["eigs", "eigsh", "lobpcg", "svds", "ArpackError", "ArpackNoConvergence"]
+)
+interface = _legacy_namespace("interface", ["LinearOperator", "aslinearoperator"])
+matfuncs = _legacy_namespace("matfuncs", ["expm", "inv", "expm_multiply", "matrix_power"])

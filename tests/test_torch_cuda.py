@@ -658,3 +658,103 @@ def test_core_ops_on_card_match_the_cpu():
               lambda a: a.sum(axis=0), lambda a: a.max(axis=1), lambda a: a.argmin(axis=0),
               lambda a: a.diagonal(1), lambda a: a.mis_tropical(k=2, seed=4)):
         assert torch.equal(f(L).cpu(), f(Lc))
+
+
+def _convection_diffusion_csr(nx: int, device="cuda"):
+    """The 5-point upwind convection-diffusion stencil (cell Peclet number
+    0.5) on an nx x nx grid, f32."""
+    import scipy.sparse as sp
+
+    n = nx * nx
+    west, east = np.full(n - 1, -1.5), np.full(n - 1, -1.0)
+    west[nx - 1:: nx] = 0.0
+    east[nx - 1:: nx] = 0.0
+    S = sp.diags([np.full(n - nx, -1.5), west, np.full(n, 5.0), east, np.full(n - nx, -1.0)],
+                 [-nx, -1, 0, 1, nx], format="csr")
+    return st.csr_array(S.astype(np.float32), device=device)
+
+
+@pytest.mark.parametrize("which", ["spilu", "splu"])
+def test_triangular_graph_equals_the_loop_bit_for_bit(which, monkeypatch):
+    """The captured K-step graph replays the loop's kernels in the loop's
+    order: the same bits. The first apply runs the loop, the second
+    captures."""
+    from sparse_tpu_torch import _direct
+
+    A = _convection_diffusion_csr(40)
+    if which == "splu":
+        monkeypatch.setattr(_direct, "DENSE_DIRECT_MAX_N", 100)
+        A = A.astype(torch.float64)
+    fac = linalg.spilu(A) if which == "spilu" else linalg.splu(A)
+    plan = fac._Lsolve if which == "spilu" else fac._Lprep
+    b = torch.rand(A.shape[0], device="cuda", dtype=A.dtype)
+    first = fac.solve(b)
+    assert plan._graphs[1] is False  # applied once, by the loop
+    second = fac.solve(b)
+    assert plan._graphs[1] is not False  # captured
+    third = fac.solve(b)
+    loop = plan.apply(b[:, None], graph=False)
+    graph = plan.apply(b[:, None], graph=True)
+    assert torch.equal(first, second) and torch.equal(second, third)
+    assert torch.equal(loop, graph)
+    r = torch.linalg.vector_norm((A @ third).double() - b.double()) / torch.linalg.vector_norm(b)
+    assert float(r) < (1e-10 if which == "splu" else 1.0)
+
+
+def test_eigsh_and_svds_repeat_bit_for_bit():
+    A = _convection_diffusion_csr(30)
+    S = (A + A.T).tocsr()
+    w1, V1 = linalg.eigsh(S, k=4, maxiter=60)
+    w2, V2 = linalg.eigsh(S, k=4, maxiter=60)
+    assert np.array_equal(w1, w2) and torch.equal(V1, V2)
+    out1, out2 = linalg.svds(A, k=3, maxiter=60), linalg.svds(A, k=3, maxiter=60)
+    assert np.array_equal(out1[1], out2[1])
+    assert torch.equal(out1[0], out2[0]) and torch.equal(out1[2], out2[2])
+
+
+def test_eigsh_cycles_wait_on_the_card_only_at_their_fetch(monkeypatch):
+    """Past the layout's build (the first call), eigsh syncs only in its
+    counted fetches, one a cycle: the start vector and the restart's
+    coefficients go up through pinned memory (``hostsync.upload``)."""
+    from sparse_tpu_torch import hostsync
+
+    A = _convection_diffusion_csr(30)
+    S = (A + A.T).tocsr()
+    w1, V1 = linalg.eigsh(S, k=4, maxiter=60)
+    real = hostsync.fetch
+
+    def fetch(x):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real(x)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(hostsync, "fetch", fetch)
+    stats = {}
+    hostsync.HOST_SYNCS = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        w2, V2 = linalg.eigsh(S, k=4, maxiter=60, _stats=stats)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert stats["cycles"] > 1 and hostsync.HOST_SYNCS == stats["cycles"]
+    assert np.array_equal(w1, w2) and torch.equal(V1, V2)
+
+
+def test_expm_multiply_on_the_kernel_equals_the_plain_path():
+    """The DIA kernel's products against the CPU's plain ones: within the
+    f32 rounding of the series, eps e^{||tA||_1} ||B||."""
+    from sparse_tpu_torch.kernels import dia_spmv as D
+
+    A = _convection_diffusion_csr(50)
+    Ac = _convection_diffusion_csr(50, device="cpu")
+    B = torch.rand(A.shape[0], device="cuda")
+    t = 0.7
+    before = D.dia_spmv_packed.launches
+    F = linalg.expm_multiply(A, B, t=t)
+    assert D.dia_spmv_packed.launches > before
+    Fc = linalg.expm_multiply(Ac, B.cpu(), t=t)
+    a1 = float(linalg.norm(Ac, ord=1)) * t
+    bound = float(np.finfo(np.float32).eps) * np.exp(a1) * float(torch.linalg.vector_norm(B))
+    assert float(torch.linalg.vector_norm(F.cpu() - Fc)) <= bound

@@ -36,6 +36,11 @@ def test_import_pulls_in_neither_jax_nor_sparse_tpu():
         "import sparse_tpu_torch.ops.spgemm, sparse_tpu_torch.ops.elementwise\n"
         "import sparse_tpu_torch.ops.reduce, sparse_tpu_torch.ops.sddmm\n"
         "import sparse_tpu_torch.ops.tropical, sparse_tpu_torch.ops.coords\n"
+        "import sparse_tpu_torch._eigen, sparse_tpu_torch._laplacian, sparse_tpu_torch._direct\n"
+        "import sparse_tpu_torch.linalg.isolve, sparse_tpu_torch.linalg.dsolve\n"
+        "import sparse_tpu_torch.linalg.eigen, sparse_tpu_torch.linalg.interface\n"
+        "import sparse_tpu_torch.linalg.matfuncs\n"
+        "from sparse_tpu_torch.linalg.isolve import cg\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sparse_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
@@ -43,6 +48,25 @@ def test_import_pulls_in_neither_jax_nor_sparse_tpu():
     out = _run(code)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+def test_linalg_surface_is_the_references():
+    """Every name of sparse_tpu.linalg.__all__ resolves in the port but
+    ir / batched_ir (ROADMAP queue 1 item 7: mixed/), and the port's
+    __all__ names only what exists; the legacy namespaces hold the same
+    objects."""
+    import sparse_tpu.linalg as jlinalg
+
+    from sparse_tpu_torch import linalg
+
+    want = [n for n in jlinalg.__all__ if n not in ("ir", "batched_ir")]
+    assert [n for n in want if not hasattr(linalg, n)] == []
+    assert sorted(linalg.__all__) == sorted(want)
+    for ns in ("isolve", "dsolve", "eigen", "interface", "matfuncs"):
+        mod, ref = getattr(linalg, ns), getattr(jlinalg, ns)
+        names = sorted(n for n in vars(ref) if not n.startswith("_"))
+        assert sorted(n for n in vars(mod) if not n.startswith("_")) == names
+        assert all(getattr(mod, n) is getattr(linalg, n) for n in names)
 
 
 def test_native_library_builds_only_the_ports_own_source():
