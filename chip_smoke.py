@@ -5,7 +5,7 @@
 
 Needs one CUDA card, ``nvcc`` and the repository checkout beside this file;
 exits non-zero without them, and on any failed check. Phases, in the order
-they run (1, 2a-2e, 3, 5, 6, 7, 8, 9, 10, 4, 11, 12):
+they run (1, 2a-2e, 3, 5, 6, 7, 8, 9, 10, 4, 11, 12, 13):
 
 1. card name and power limit; build the CUDA kernels (csrc/*.cu) and time it;
 2. each kernel against its plain torch version on the card: (a, b) the DIA
@@ -109,10 +109,27 @@ they run (1, 2a-2e, 3, 5, 6, 7, 8, 9, 10, 4, 11, 12):
    spilu (ILU(0)) at 1000^2 as a loop and as a CUDA graph (bit for bit)
    and as gmres's M (its device events an apply: 2 K times the events of
    a step of splu's solve, by torch.profiler), a 10^6-row tridiagonal ILU,
-   dense splu/inv/expm at 2048 against scipy.
+   dense splu/inv/expm at 2048 against scipy;
+13. the remaining formats and application modules, after phase 12 with its
+   operators freed: (a) examples/quantum_evolution.py's f32 stacked-real
+   form on the 30-atom ring (1,860,498 states): the Hamiltonian build,
+   DOP853 from 0 to 1 at rtol 1e-5 (dia_spmv_packed on the diagonal cost,
+   ELL on H_driver), one counted fetch a step attempt past the setup's
+   three and no other sync, twice bit for bit, steps/s, norm drift, MIS
+   overlap and cost; the same under spmv_mode 'sell' (sell_chunk_spmv)
+   within a stated bound of the ELL run; the 16-atom ring in f64 against
+   scipy's DOP853 in complex128; (b) examples/heat_implicit.py's BDF at
+   64^2 and Radau at 32^2 (dense LU on the card), the mode-1 decay within
+   1e-4; (c) csgraph on the 2000^2 grid graph: connected_components,
+   breadth_first_order and dijkstra from the corners against the closed
+   form |di| + |dj|, twice bit for bit with their fetches; RCM of a
+   permuted 256^2 Laplacian and splu(permc_spec='RCM') of it; (d) cdist
+   at 16384^2 (k = 64, f32) against host f64 on sampled rows, the 6000^2
+   operator's tobsr((2, 2)) against its CSR product, dok/lil round trips
+   of 10^5 entries.
 
 Each of the six paths (3, 5, 6, 7, 8, 9), each of phase 10's three
-operators, phase 11 and each of phase 12's six parts runs with every
+operators, phase 11 and each part of phases 12 and 13 runs with every
 kernel's launch counter set to 0
 just before it and read just after; each kernel of the path must have
 launched. The
@@ -2671,6 +2688,441 @@ def linalg_rest(dev, drive, grid: int = 6000, small: int = 100, power_grid: int 
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the remaining formats and application modules
+# ---------------------------------------------------------------------------
+def ring_adjacency(n: int) -> np.ndarray:
+    """The dense 0/1 adjacency of the n-atom ring C_n (the card machine has
+    no networkx; quantum takes a dense adjacency as it takes a graph)."""
+    adj = np.zeros((n, n), dtype=np.int8)
+    i = np.arange(n)
+    adj[i, (i + 1) % n] = adj[(i + 1) % n, i] = 1
+    return adj
+
+
+def ring_hamiltonians(dev, nodes: int, dtype):
+    """(H_driver, H_cost, the MIS Hamiltonian, build seconds) of the
+    nodes-atom ring on ``dev``, built as examples/quantum_evolution.py
+    builds them, in ``dtype`` (their values are integers)."""
+    from sparse_tpu_torch import quantum
+
+    adj = ring_adjacency(nodes)
+
+    def build():
+        drv = quantum.HamiltonianDriver(graph=adj, dtype=dtype, device=dev)
+        mis = quantum.HamiltonianMIS(graph=adj, poly=drv.ip, dtype=dtype, device=dev)
+        return drv.hamiltonian, mis.hamiltonian, mis
+
+    (Hd, Hc, mis), secs = timed(dev, build)
+    return Hd, Hc, mis, secs
+
+
+def stacked_rhs(Hc, Hd, T: float):
+    """examples/quantum_evolution.py's accelerator form: both Hamiltonians
+    are real, so i y' = H(t) y, H(t) = (t/T) H_cost + (1 - t/T) H_driver,
+    is the stacked real system (yr, yi)' = (H yi, -H yr)."""
+    import torch
+
+    nst = Hc.shape[0]
+
+    def rhs(t, y):
+        a, b = t / T, 1.0 - t / T
+        yr, yi = y[:nst], y[nst:]
+        return torch.cat([a * (Hc @ yi) + b * (Hd @ yi), -(a * (Hc @ yr) + b * (Hd @ yr))])
+
+    return rhs
+
+
+def evolve(dev, rhs, y0, T: float, rtol: float, atol: float):
+    """(solve_ivp's DOP853 result, seconds, HOST_SYNCS) from 0 to T, every
+    sync outside the counted fetches an error (``fetches_only`` from the
+    start)."""
+    from sparse_tpu_torch import hostsync, integrate
+
+    hostsync.HOST_SYNCS = 0
+    with fetches_only(dev, from_start=True):
+        out, secs = timed(dev, lambda: integrate.solve_ivp(rhs, (0.0, T), y0, method="DOP853",
+                                                          rtol=rtol, atol=atol))
+    return out, secs, hostsync.HOST_SYNCS
+
+
+def quantum_ring(dev, nodes: int = 30, small: int = 16, T: float = 1.0):
+    """Phase 13a: examples/quantum_evolution.py's f32 stacked-real form on
+    the nodes-atom ring (``-graph cycle``): the Hamiltonian build, then
+    DOP853 from 0 to T at rtol 1e-5, atol 1e-7 (dia_spmv_packed on the
+    diagonal cost, ELL on H_driver under 'auto'), with one counted
+    fetch a step attempt past the setup's three and no other sync, twice
+    bit for bit; steps, nfev, steps/s, the norm drift, the MIS overlap and
+    cost; the card's busy share over RHS_PROFILED right-hand sides. Then the
+    small-ring check: the same form in f64 on the card at rtol 1e-10
+    against scipy's DOP853 in complex128 on the host."""
+    import scipy.integrate as si
+    import scipy.sparse as sp
+    import torch
+    from sparse_tpu_torch import integrate
+
+    print(f"phase 13a: quantum evolution on the {nodes}-atom ring (examples/quantum_evolution.py "
+          f"-graph cycle -nodes {nodes}, stacked real f32, DOP853 to T = {T})", flush=True)
+    Hd, Hc, mis, build_s = ring_hamiltonians(dev, nodes, np.float32)
+    nst = Hc.shape[0]
+    print(f"  Hamiltonian build {build_s:.2f} s: {nst} states, H_driver nnz {Hd.nnz}", flush=True)
+    rhs = stacked_rhs(Hc, Hd, T)
+    y0 = torch.zeros((2 * nst,), dtype=torch.float32, device=dev)
+    y0[nst - 1] = 1.0  # the empty-set state, real part
+    _, warm_s = timed(dev, lambda: rhs(0.0, y0))  # the layouts: DIA planes, ELL
+    runs = [evolve(dev, rhs, y0, T, 1e-5, 1e-7) for _ in range(2)]
+    (out, secs, syncs), (out2, secs2, syncs2) = runs
+    steps = len(out.t) - 1
+    attempts = (out.nfev - 2) // integrate.DOP853.n_stages
+    yh = out.y[:, -1].cpu().numpy().astype(np.float64)
+    final = yh[:nst] + 1j * yh[nst:]
+    res = dict(nodes=nodes, nstates=nst, nnz_driver=Hd.nnz, build_s=build_s, warm_rhs_s=warm_s,
+               steps=steps, nfev=out.nfev, attempts=attempts, s=secs, s_repeat=secs2,
+               steps_per_s=steps / secs, host_syncs=syncs,
+               norm_drift=abs(float(np.linalg.norm(final)) - 1.0),
+               mis_size=int(mis.optimum), overlap=mis.optimum_overlap(final),
+               cost=mis.cost_function(final))
+    print(f"  DOP853: {steps} steps, nfev {out.nfev} ({attempts} step attempts) in {secs:.3f} s = "
+          f"{res['steps_per_s']:.3f} steps/s (repeat {secs2:.3f} s); HOST_SYNCS {syncs}; norm drift "
+          f"{res['norm_drift']:.3e}; MIS size {res['mis_size']}, optimum overlap "
+          f"{res['overlap']:.4f}, cost {res['cost']:.4f}", flush=True)
+    check(out.status == 0 and steps > 0, "the evolution reaches T")
+    check(syncs == syncs2 == 3 + attempts,
+          "one counted fetch a step attempt past the setup's three, and no other sync")
+    check(bool(torch.equal(out.y, out2.y)) and np.array_equal(out.t, out2.t),
+          "the evolution repeats bit for bit")
+    check(res["norm_drift"] <= 1e-3 and np.isfinite(res["cost"]),
+          "the norm holds to 1e-3 in f32 and the cost is finite")
+    res["busy_share"] = device_share(f"{RHS_PROFILED} right-hand sides under 'auto' ({nodes}-atom "
+                                     "ring)", lambda: [rhs(0.5, y0) for _ in range(RHS_PROFILED)]
+                                     ) if dev == "cuda" else None
+    res["final"], res["t"] = out.y[:, -1].clone(), out.t
+    res["H"] = (Hd, Hc)  # the SELL rerun's operators (its chunk packs are plan-cached apart)
+    del out, out2, runs
+
+    Hd64, Hc64, _, _ = ring_hamiltonians(dev, small, np.float64)
+    ns = Hc64.shape[0]
+    rhs64 = stacked_rhs(Hc64, Hd64, T)
+    y064 = torch.zeros((2 * ns,), dtype=torch.float64, device=dev)
+    y064[ns - 1] = 1.0
+    rhs64(0.0, y064)
+    out64, _, _ = evolve(dev, rhs64, y064, T, 1e-10, 1e-12)
+    yc = out64.y[:, -1].cpu().numpy()
+    yc = yc[:ns] + 1j * yc[ns:]
+
+    def host(H):
+        H = H.tocsr()
+        return sp.csr_matrix(tuple(a.cpu().numpy() for a in (H.data, H.indices, H.indptr)),
+                             shape=H.shape)
+
+    Hds, Hcs = host(Hd64), host(Hc64)
+    yc0 = np.zeros(ns, dtype=np.complex128)
+    yc0[-1] = 1.0
+    ref = si.solve_ivp(lambda t, y: -1j * ((t / T) * (Hcs @ y) + (1 - t / T) * (Hds @ y)),
+                       (0.0, T), yc0, method="DOP853", rtol=1e-10, atol=1e-12)
+    err = float(np.abs(yc - ref.y[:, -1]).max())
+    res["small"] = dict(nodes=small, nstates=ns, steps=len(out64.t) - 1, ref_steps=len(ref.t) - 1,
+                        max_abs_err=err)
+    print(f"  {small}-atom ring in f64 ({ns} states): {len(out64.t) - 1} steps against scipy's "
+          f"{len(ref.t) - 1}; max |y - y_scipy| = {err:.3e}", flush=True)
+    check(err <= QUANTUM_SMALL_BOUND,
+          f"the {small}-atom evolution within {QUANTUM_SMALL_BOUND:g} of scipy's DOP853, each "
+          "component")
+    return res
+
+
+# right-hand sides under one profile: the profiler misses the first few
+# kernels after it starts, most of one 'sell' right-hand side's (~1.5 ms)
+RHS_PROFILED = 10
+# the cycle-16 f64 evolution against scipy's: both at rtol 1e-10, atol
+# 1e-12, each component within 1e-9 (the CPU rehearsal: 3.9e-13)
+QUANTUM_SMALL_BOUND = 1e-9
+
+
+def quantum_sell(dev, ring, T: float = 1.0):
+    """Phase 13a under spmv_mode 'sell': the same evolution on the same
+    operators with both Hamiltonians through sell_chunk_spmv, timed beside
+    the ELL run, its final state equal to the ELL run's bit for bit. Both
+    products sum a row as acc + v * x[c], each product and each sum
+    rounded, over the row's CSR order with zero pads at the end, and no
+    row of the ring's is wider than a chunk segment (SELL_SEGMENT), so no
+    partial sums; the diagonal H_cost is one product a row either way."""
+    import torch
+    import sparse_tpu_torch as sparse
+    from sparse_tpu_torch.kernels.sell_spmv import SELL_SEGMENT
+
+    Hd, Hc = ring["H"]
+    nst = Hc.shape[0]
+    check(max(Hd._ell_width(), Hc._ell_width()) <= SELL_SEGMENT,
+          f"every row of the ring's Hamiltonians fits one SELL segment ({SELL_SEGMENT})")
+    prev = sparse.settings.spmv_mode
+    sparse.settings.spmv_mode = "sell"
+    try:
+        rhs = stacked_rhs(Hc, Hd, T)
+        y0 = torch.zeros((2 * nst,), dtype=torch.float32, device=dev)
+        y0[nst - 1] = 1.0
+        _, warm_s = timed(dev, lambda: rhs(0.0, y0))  # the chunk packs
+        out, secs, syncs = evolve(dev, rhs, y0, T, 1e-5, 1e-7)
+        busy = device_share(f"{RHS_PROFILED} right-hand sides under 'sell' ({ring['nodes']}-atom "
+                            "ring)", lambda: [rhs(0.5, y0) for _ in range(RHS_PROFILED)]
+                            ) if dev == "cuda" else None
+    finally:
+        sparse.settings.spmv_mode = prev
+    diff = float((out.y[:, -1] - ring["final"]).abs().max())
+    steps = len(out.t) - 1
+    res = dict(steps=steps, nfev=out.nfev, s=secs, steps_per_s=steps / secs, host_syncs=syncs,
+               pack_s=warm_s, busy_share=busy, max_abs_diff_vs_ell=diff)
+    print(f"  under spmv_mode 'sell': {steps} steps, nfev {out.nfev} in {secs:.3f} s = "
+          f"{res['steps_per_s']:.3f} steps/s (ELL: {ring['steps_per_s']:.3f}); chunk packs "
+          f"{warm_s:.2f} s; max |y_sell - y_ell| = {diff:.3e}", flush=True)
+    check(np.array_equal(out.t, ring["t"]) and bool(torch.equal(out.y[:, -1], ring["final"])),
+          "the SELL run's times and final state equal the ELL run's bit for bit")
+    return res
+
+
+def heat_equation(dev, n_bdf: int = 64, n_radau: int = 32, t_end: float = 0.1):
+    """Phase 13b: examples/heat_implicit.py's problem, u' = L u with L the
+    5-point Laplacian over h^2 (f64, banded: dia_spmv_packed), BDF at
+    n_bdf^2 unknowns (a dense LU on the card) and Radau at n_radau^2, to
+    t_end with jac=L: the mode-1 decay within 1e-4 relative of
+    exp(-lambda_1 t)."""
+    from sparse_tpu_torch import integrate
+    from sparse_tpu_torch.models.poisson import laplacian_2d_csr_host
+
+    print(f"phase 13b: heat equation (examples/heat_implicit.py): BDF at {n_bdf}^2, Radau at "
+          f"{n_radau}^2, to t = {t_end} (float64)", flush=True)
+    out = {}
+    for method, n in (("BDF", n_bdf), ("Radau", n_radau)):
+        L = (laplacian_2d_csr_host(n, device=dev) * (-(n + 1) ** 2)).tocsr()
+        x = np.linspace(0, 1, n + 2)[1:-1]
+        y0 = (np.sin(np.pi * x)[:, None] * np.sin(np.pi * x)[None, :]).ravel()
+        sol, secs = timed(dev, lambda: integrate.solve_ivp(
+            lambda t, y: L @ y, (0.0, t_end), y0, method=method, jac=L, rtol=1e-6, atol=1e-9,
+            device=dev))
+        lam1 = 4 * (n + 1) ** 2 * (1 - np.cos(np.pi / (n + 1)))
+        decay = float(sol.y[:, -1].cpu().numpy() @ y0 / (y0 @ y0))
+        rel = abs(decay / np.exp(-lam1 * t_end) - 1)
+        out[method] = dict(n=n, steps=len(sol.t) - 1, nfev=sol.nfev, nlu=sol.nlu, s=secs,
+                           decay=decay, rel=rel)
+        print(f"  {method} at {n}^2 = {n * n} unknowns: status {sol.status}, {len(sol.t) - 1} steps, "
+              f"nfev {sol.nfev}, nlu {sol.nlu}, {secs:.2f} s; mode-1 decay {decay:.8f} against "
+              f"exp(-lambda_1 t) {np.exp(-lam1 * t_end):.8f} (rel {rel:.2e})", flush=True)
+        check(sol.status == 0 and rel <= 1e-4, f"{method}'s mode-1 decay within 1e-4 of the "
+              "closed form")
+    return out
+
+
+def grid_graph(dev, n: int, cut: bool = False):
+    """The n^2 5-point grid graph with unit weights (both directions of
+    each edge), built on ``dev``; ``cut`` drops the edges between the
+    middle two columns."""
+    import torch
+    import sparse_tpu_torch as sparse
+
+    ids = torch.arange(n * n, device=dev).view(n, n)
+    h0, h1 = ids[:, :-1], ids[:, 1:]
+    if cut:
+        keep = torch.arange(n - 1, device=dev) != n // 2 - 1
+        h0, h1 = h0[:, keep], h1[:, keep]
+    h0, h1 = h0.reshape(-1), h1.reshape(-1)
+    v0, v1 = ids[:-1].reshape(-1), ids[1:].reshape(-1)
+    rows, cols = torch.cat([h0, h1, v0, v1]), torch.cat([h1, h0, v1, v0])
+    w = torch.ones(rows.shape, dtype=torch.float64, device=dev)
+    return sparse.coo_array((w, (rows, cols)), shape=(n * n, n * n)).tocsr()
+
+
+def twice(dev, fn):
+    """(first result, seconds, its counted fetches, second result)."""
+    from sparse_tpu_torch import hostsync
+
+    hostsync.HOST_SYNCS = 0
+    first, secs = timed(dev, fn)
+    fetches = hostsync.HOST_SYNCS
+    return first, secs, fetches, fn()
+
+
+def csgraph_grid(dev, n: int = 2000, rcm_grid: int = 256, natural_fill=None):
+    """Phase 13c: csgraph on the n^2 grid graph: connected_components (1,
+    and 2 with the middle column's edges cut), breadth_first_order from
+    vertex 0 and dijkstra from the four corners against the closed form
+    |di| + |dj|, each call twice bit for bit with its counted fetches;
+    reverse_cuthill_mckee of a randomly permuted rcm_grid^2 Laplacian
+    (its bandwidth back to at most rcm_grid), and splu(permc_spec='RCM')
+    of it in f64: a solve's residual, and its fill against NATURAL's on
+    the unpermuted operator (phase 12e's ``natural_fill``)."""
+    import scipy.sparse as sp
+    import sparse_tpu_torch as sparse
+    from sparse_tpu_torch import csgraph, linalg
+
+    N = n * n
+    print(f"phase 13c: csgraph on the {n}^2 grid graph ({N} vertices), RCM and splu(RCM) at "
+          f"{rcm_grid}^2", flush=True)
+    G, build_s = timed(dev, lambda: grid_graph(dev, n))
+    Gc = grid_graph(dev, n, cut=True)
+    ii, jj = np.divmod(np.arange(N), n)
+    out = {"n": n, "edges": G.nnz, "build_s": build_s}
+    print(f"  built on the card in {build_s:.2f} s: {G.nnz} directed edges", flush=True)
+
+    (k, lab), cc_s, cc_f, (k2, lab2) = twice(dev, lambda: csgraph.connected_components(G))
+    (kc, labc), cut_s, _, (kc2, labc2) = twice(dev, lambda: csgraph.connected_components(Gc))
+    print(f"  connected_components: {k} in {cc_s:.2f} s ({cc_f} fetches); cut: {kc} in {cut_s:.2f} s",
+          flush=True)
+    check(k == k2 == 1 and kc == kc2 == 2 and np.array_equal(lab, lab2)
+          and np.array_equal(labc, labc2) and (labc == (jj >= n // 2)).all(),
+          "one component, two with the middle column cut, labels as the closed form, bit for bit")
+
+    hop0 = ii + jj
+    (order, pred), bfs_s, bfs_f, (order2, pred2) = twice(
+        dev, lambda: csgraph.breadth_first_order(G, 0, directed=False))
+    v = order[1:]
+    p = pred[v].astype(np.int64)
+    print(f"  breadth_first_order from 0: {order.shape[0]} vertices in {bfs_s:.2f} s ({bfs_f} "
+          "fetches)", flush=True)
+    check(np.array_equal(order, order2) and np.array_equal(pred, pred2)
+          and order.shape[0] == N and (np.diff(hop0[order]) >= 0).all()
+          and (hop0[p] == hop0[v] - 1).all() and (np.abs(ii[p] - ii[v]) + np.abs(jj[p] - jj[v]) == 1).all(),
+          "the BFS order runs by hop distance |i| + |j|, each predecessor a neighbor one hop "
+          "nearer, bit for bit")
+
+    corners = [0, n - 1, N - n, N - 1]
+    d, dij_s, dij_f, d2 = twice(dev, lambda: csgraph.dijkstra(G, indices=corners))
+    want = np.stack([np.abs(ii - ii[c]) + np.abs(jj - jj[c]) for c in corners]).astype(np.float64)
+    print(f"  dijkstra from the four corners: {dij_s:.2f} s ({dij_f} fetches; hop diameter "
+          f"{2 * (n - 1)} within the {min(N, max(64, 2 * int(np.sqrt(N)) + 16))}-sweep bound)",
+          flush=True)
+    check(np.array_equal(d, d2) and np.array_equal(d, want),
+          "dijkstra's distances are the closed form exactly, bit for bit")
+    out.update(components_s=cc_s, components_fetches=cc_f, cut_s=cut_s, bfs_s=bfs_s,
+               bfs_fetches=bfs_f, dijkstra_s=dij_s, dijkstra_fetches=dij_f)
+    del G, Gc, d, d2, order, order2, pred, pred2
+
+    T1 = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(rcm_grid, rcm_grid))
+    S = (sp.kron(T1, sp.identity(rcm_grid)) + sp.kron(sp.identity(rcm_grid), T1)).tocsr()
+    q = np.random.default_rng(61).permutation(rcm_grid**2)
+    P = S[q][:, q].tocsr()
+    Pd = sparse.csr_array(P, device=dev)
+    perm, rcm_s = timed(dev, lambda: csgraph.reverse_cuthill_mckee(Pd))
+    R = P[perm][:, perm].tocoo()
+    band, band_p = int(np.abs(R.row - R.col).max()), int(np.abs(P.tocoo().row - P.tocoo().col).max())
+    print(f"  reverse_cuthill_mckee at {rcm_grid}^2: {rcm_s:.2f} s; bandwidth {band_p} permuted, "
+          f"{band} reordered", flush=True)
+    check(band <= rcm_grid, f"RCM brings the bandwidth back to at most {rcm_grid}")
+    lu, fsecs = timed(dev, lambda: linalg.splu(Pd, permc_spec="RCM"))
+    b = np.random.default_rng(62).standard_normal(rcm_grid**2)
+    x = lu.solve(b).cpu().numpy()
+    rel = float(np.linalg.norm(P @ x - b) / np.linalg.norm(b))
+    fill = int(lu._Lcsc[2].size + lu._Ucsc[2].size)
+    print(f"  splu(permc_spec='RCM') of the permuted operator: factor {fsecs:.2f} s, nnz(L) + "
+          f"nnz(U) = {fill} (NATURAL on the unpermuted operator, phase 12e: {natural_fill}); "
+          f"||P x - b|| / ||b|| = {rel:.3g}", flush=True)
+    check(rel <= 1e-10 and (natural_fill is None or fill < natural_fill),
+          "the RCM factor solves to 1e-10 with less fill than NATURAL's on the banded order")
+    out.update(rcm_s=rcm_s, bandwidth_permuted=band_p, bandwidth_rcm=band, splu_rcm_s=fsecs,
+               splu_rcm_fill=fill, splu_natural_fill=natural_fill, splu_rcm_rel=rel)
+    return out
+
+
+def formats_distances(dev, m: int = 16384, k: int = 64, grid: int = 6000, nd: int = 10**5):
+    """Phase 13d: cdist at m x m, k features in f32 against host f64 on
+    sampled rows (|d^2 - d_ref^2| within the expansion's summation bound);
+    phase 3's grid^2 operator .tobsr((2, 2)): its product against the CSR
+    product within the f32 summation bound of a block row and its
+    tocsr() equal to the operator exactly; dok/lil round trips of nd
+    entries, exact."""
+    import scipy.sparse as sp
+    import torch
+    import sparse_tpu_torch as sparse
+    from sparse_tpu_torch import spatial
+
+    print(f"phase 13d: cdist at {m} x {m} (k = {k}, float32), tobsr((2, 2)) of the {grid}^2 "
+          f"Laplacian, dok/lil round trips of {nd} entries", flush=True)
+    u = float(np.finfo(np.float32).eps) / 2
+    gen = torch.Generator(device=dev).manual_seed(71)
+    XA = torch.randn((m, k), generator=gen, device=dev)
+    XB = torch.randn((m, k), generator=gen, device=dev)
+    spatial.cdist(XA, XB)  # warm: the allocator's segments, cuBLAS's workspace
+    D, cd_s = timed(dev, lambda: spatial.cdist(XA, XB))
+    _, lib_s = timed(dev, lambda: torch.cdist(XA, XB))  # the library call, for comparison
+    rows = np.random.default_rng(72).choice(m, 64, replace=False)
+    A64, B64 = XA[rows].cpu().double().numpy(), XB.cpu().double().numpy()
+    ref2 = ((A64[:, None, :] - B64[None, :, :]) ** 2).sum(-1)
+    got2 = D[rows].cpu().double().numpy() ** 2
+    # each of |a|^2, |b|^2 and a.b within gamma_k of its terms' sum, two
+    # more roundings to combine them (|a.b| <= (|a|^2 + |b|^2) / 2), then
+    # the square root's and the host square's
+    norms = (A64**2).sum(1)[:, None] + (B64**2).sum(1)[None, :]
+    gamma = (k + 2) * u / (1 - (k + 2) * u)
+    bound = 2 * gamma * norms + 3 * u * ref2
+    worst = float((np.abs(got2 - ref2) / bound).max())
+    print(f"  cdist: {cd_s * 1e3:.2f} ms ({m * m * 4 / 2**30:.2f} GiB out; torch.cdist "
+          f"{lib_s * 1e3:.2f} ms); worst |d^2 - d_ref^2| over its bound {worst:.3g} on 64 sampled "
+          "rows", flush=True)
+    check(worst <= 1.0, "cdist within the f32 expansion bound of host f64 on sampled rows")
+    out = {"cdist_ms": cd_s * 1e3, "torch_cdist_ms": lib_s * 1e3, "cdist_worst_over_bound": worst}
+    del D, XA, XB
+
+    A, _, _ = pde_laplacian(dev, grid)
+    B, bsr_s = timed(dev, lambda: A.tobsr((2, 2)))
+    x = torch.randn((A.shape[1],), generator=gen, device=dev)
+    B @ x  # warm
+    yb, bmv_s = timed(dev, lambda: B @ x)
+    ya = A @ x
+    gamma = 10 * u / (1 - 10 * u)  # a block row sums 10 stored values, the CSR row 5
+    ab = abs(A) @ x.abs()
+    over = float(((yb - ya).abs() / (2 * gamma * ab).clamp_min(1e-30)).max())
+    C = B.tocsr()
+    same = (C.nnz == A.nnz and bool(torch.equal(C.indptr.long(), A.indptr.long()))
+            and bool(torch.equal(C.indices.long(), A.indices.long()))
+            and bool(torch.equal(C.data, A.data)))
+    print(f"  tobsr((2, 2)): {bsr_s:.2f} s, {B.data.shape[0]} blocks ({B.nnz} stored values for "
+          f"{A.nnz} nonzeros); B @ x {bmv_s * 1e3:.2f} ms, |B x - A x| over 2 gamma_10 |A||x| "
+          f"{over:.3g}; tocsr() equal to A: {same}", flush=True)
+    check(over <= 1.0 and same, "the BSR product within the f32 summation bound of the CSR one, "
+          "and its tocsr() the operator exactly")
+    out.update(tobsr_s=bsr_s, bsr_blocks=int(B.data.shape[0]), bsr_spmv_ms=bmv_s * 1e3,
+               bsr_over_bound=over)
+    del A, B, C, x, yb, ya, ab
+
+    S = sp.random(20000, 30000, nd / 6e8, random_state=np.random.default_rng(73), format="csr",
+                  dtype=np.float64)
+    S.data += 0.5  # no stored zeros
+    Sd = sparse.csr_array(S, device=dev)
+    for fmt in ("todok", "tolil"):
+        back, secs = timed(dev, lambda: getattr(Sd, fmt)().tocsr())
+        exact = (bool(torch.equal(back.indptr.long(), Sd.indptr.long()))
+                 and bool(torch.equal(back.indices.long(), Sd.indices.long()))
+                 and bool(torch.equal(back.data, Sd.data)))
+        print(f"  {fmt}().tocsr() of {Sd.nnz} entries: {secs:.2f} s, exact: {exact}", flush=True)
+        check(exact, f"the {fmt[2:]} round trip is exact")
+        out[f"{fmt}_s"] = secs
+    return out
+
+
+def apps(dev, drive, nodes: int = 30, small: int = 16, n_bdf: int = 64, n_radau: int = 32,
+         graph_n: int = 2000, rcm_grid: int = 256, natural_fill=None, cd_m: int = 16384,
+         grid: int = 6000, nd: int = 10**5):
+    """Phase 13 (a)-(d), each part run by ``drive`` with the launch
+    counters at 0; prints its seconds on the host clock."""
+    t0 = time.perf_counter()
+    dia, sell = ("dia_spmv_packed",), ("sell_chunk_spmv",)
+    everything = ("dia_spmv_packed", "cg_kernel_a", "cg_kernel_b", "sell_chunk_spmv",
+                  "sell_chunk_spmv_batched", "dia_spmv_direct", "cgcg_kernel", "cgcg_kernel_wide")
+    ring = drive("quantum ring, ELL (13a)", dia, quantum_ring, dev, nodes, small, absent=sell)
+    out = {"quantum": ring}
+    out["quantum_sell"] = drive("quantum ring, SELL (13a)", sell, quantum_sell, dev, ring,
+                                absent=dia)
+    for key in ("final", "t", "H"):
+        ring.pop(key)
+    out["heat"] = drive("heat equation (13b)", dia, heat_equation, dev, n_bdf, n_radau)
+    out["csgraph"] = drive("csgraph (13c)", (), csgraph_grid, dev, graph_n, rcm_grid,
+                           natural_fill, absent=everything)
+    out["formats"] = drive("formats and distances (13d)", dia, formats_distances, dev, cd_m, 64,
+                           grid, nd)
+    out["s"] = time.perf_counter() - t0
+    print(f"phase 13 took {out['s']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 def timings(dev, A, cg_state, bw, flops):
@@ -3294,6 +3746,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rest = linalg_rest("cuda", res["drive"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    app = apps("cuda", res["drive"], natural_fill=rest["direct"]["splu"]["fill"])
     kernels = []
     for name, r in t.items():
         lib = r["library_ms"]
@@ -3316,7 +3771,8 @@ def main() -> int:
     print(json.dumps({"main_path": o, "general_path": g, "batched_path": bo,
                       "flagship_step": res["out_f"], "fused_sweep": sw,
                       "wide_band_path": res["out_w"], "onepass": t["cgcg_kernel"].pop("onepass"),
-                      "krylov": res["out_k"], "core_ops": core, "linalg_rest": rest}),
+                      "krylov": res["out_k"], "core_ops": core, "linalg_rest": rest,
+                      "apps": app}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(res["card"], flush=True)

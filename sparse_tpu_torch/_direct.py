@@ -248,15 +248,6 @@ class _PreparedTriangular:
         return self._steps(b_pad, torch.zeros_like(b_pad))[: self.n]
 
 
-def _permc_natural(permc_spec) -> None:
-    """scipy's ordering names: NATURAL, and COLAMD / MMD_* taken as it;
-    RCM needs csgraph's reverse Cuthill-McKee, which is not ported yet."""
-    if isinstance(permc_spec, str) and permc_spec.upper() == "RCM":
-        raise NotImplementedError(
-            "splu(permc_spec='RCM') needs csgraph.reverse_cuthill_mckee, which is not ported to "
-            "sparse_tpu_torch yet (ROADMAP queue 1 item 4)")
-
-
 class SuperLU:
     """LU factorization with scipy's ``SuperLU`` surface (shape, nnz,
     perm_r, perm_c, L, U, solve), in two regimes:
@@ -309,9 +300,17 @@ class SuperLU:
         incomplete variant (spilu's fill_factor path)."""
         from . import native
 
-        _permc_natural(permc_spec)
         n = self.shape[0]
+        q = None
         row, col, val = _coo_host(A)
+        if isinstance(permc_spec, str) and permc_spec.upper() == "RCM":
+            from .csgraph import reverse_cuthill_mckee
+
+            # a symmetric pre-permutation: entry (r, c) of A lands at
+            # (qinv[r], qinv[c]) of A[q][:, q]
+            q = np.asarray(reverse_cuthill_mckee(A), dtype=np.int64)
+            qinv = np.argsort(q)
+            row, col = qinv[row], qinv[col]
         cp, _col_s, row_s, val_s = _coo_to_csr_host(col, row, val, n)  # CSC = CSR of A^T
         val_s = np.asarray(val_s, dtype=np.float64)
         if ilut is None:
@@ -324,8 +323,19 @@ class SuperLU:
         self._mode = "sparse"
         self._perm = torch.as_tensor(perm, device=self.device)
         self._pinv = torch.as_tensor(np.argsort(perm), device=self.device)
-        self.perm_r = np.argsort(perm)
-        self.perm_c = np.arange(n)
+        self._q = self._qinv = None
+        if q is None:
+            self.perm_r = np.argsort(perm)
+            self.perm_c = np.arange(n)
+        else:
+            # Pr A Pc = L U with Pc the RCM order: column j of A Pc is
+            # A[:, q[j]], row k of the factored matrix A[q[perm[k]]]; scipy's
+            # perm_r is the inverse
+            self._q = torch.as_tensor(q, device=self.device)
+            self._qinv = torch.as_tensor(qinv, device=self.device)
+            self.perm_c = q
+            self.perm_r = np.empty(n, dtype=np.int64)
+            self.perm_r[q[perm]] = np.arange(n)
         self._Lcsc = (Lp, Li, Lx)
         self._Ucsc = (Up, Ui, Ux)
         self._dt = _float_dtype(A.dtype)
@@ -356,10 +366,15 @@ class SuperLU:
 
     def _solve_sparse_real(self, bmat, trans):
         """P A = L U: N solves x = U \\ (L \\ (P b)); T/H (real factors)
-        solve U^T, then L^T, and un-permute."""
+        solve U^T, then L^T, and un-permute. Under an RCM order q the
+        factored matrix is A[q][:, q], also the symmetric permutation of
+        A^T: both directions permute the rhs in and the solution out."""
         n = self.shape[0]
+        if self._q is not None:
+            bmat = bmat[self._q]
         if trans == "N":
-            return self._Uprep.apply(self._Lprep.apply(bmat[self._perm]))
+            x = self._Uprep.apply(self._Lprep.apply(bmat[self._perm]))
+            return x if self._q is None else x[self._qinv]
         if self._UTprep is None:
             Lp, Li, Lx = self._Lcsc
             Up, Ui, Ux = self._Ucsc
@@ -372,7 +387,8 @@ class SuperLU:
             self._LTprep = _PreparedTriangular(n, Lcols, Li, Lx, lower=False,
                                                unit_diagonal=True, dtype=self._dt,
                                                device=self.device)
-        return self._LTprep.apply(self._UTprep.apply(bmat))[self._pinv]
+        x = self._LTprep.apply(self._UTprep.apply(bmat))[self._pinv]
+        return x if self._q is None else x[self._qinv]
 
     @property
     def L(self):
@@ -572,8 +588,10 @@ def splu(A, permc_spec=None, diag_pivot_thresh=None, relax=None, panel_size=None
          options=None):
     """LU factorization returning a :class:`SuperLU`
     (scipy.sparse.linalg.splu). ``permc_spec``: ``"NATURAL"`` (default;
-    scipy's COLAMD/MMD names are taken as it); ``"RCM"`` raises until
-    csgraph is ported. The other SuperLU knobs are accepted and ignored."""
+    scipy's COLAMD/MMD names are taken as it); ``"RCM"`` pre-permutes the
+    sparse factorization symmetrically by csgraph's reverse Cuthill-McKee
+    order, which cuts the fill of a scattered banded pattern. The other
+    SuperLU knobs are accepted and ignored."""
     return SuperLU(A, permc_spec=permc_spec)
 
 

@@ -14,12 +14,8 @@ import numpy as np
 import torch
 
 from . import hostsync, plan_cache
-from .utils import host_int
-
-
-def _not_ported(fmt: str):
-    raise NotImplementedError(
-        f"{fmt}_array is not ported to sparse_tpu_torch yet (ROADMAP queue 1 item 4)")
+from .ops.coords import expand_rows
+from .utils import host_array, host_int
 
 
 class SparseArray:
@@ -69,14 +65,42 @@ class SparseArray:
     def todense(self):
         return self.toarray()
 
-    def tobsr(self, blocksize=None):
-        _not_ported("bsr")
-
     def todok(self):
-        _not_ported("dok")
+        """Host dictionary-of-keys staging copy (``dok.dok_array``)."""
+        from .dok import dok_array
+
+        return dok_array(self)
 
     def tolil(self):
-        _not_ported("lil")
+        """Host list-of-lists staging copy (``lil.lil_array``)."""
+        from .lil import lil_array
+
+        return lil_array(self)
+
+    def tobsr(self, blocksize=None):
+        """Block sparse row copy (``bsr.bsr_array``) of [R, C] dense blocks,
+        built on the array's device. ``blocksize=None`` estimates the block
+        structure as scipy does (the largest candidate whose fill
+        efficiency clears 0.7; (1, 1) when there is none); the shape must
+        divide by the chosen size."""
+        from .bsr import bsr_array
+        from .ops.coords import counts_to_indptr
+
+        C = self.tocsr()
+        m, n = C.shape
+        rows = expand_rows(C.indptr, C.nnz).to(torch.int64)
+        cols = C.indices.to(torch.int64)
+        if blocksize is None:
+            blocksize = _estimate_blocksize(rows, cols, (m, n))
+        R, Cb = tuple(map(int, blocksize))
+        if R < 1 or Cb < 1 or m % R or n % Cb:
+            raise ValueError(f"blocksize {(R, Cb)} does not divide shape {(m, n)}")
+        Nb = n // Cb
+        ublocks, binv = torch.unique(rows // R * Nb + cols // Cb, return_inverse=True)
+        data = torch.zeros((ublocks.shape[0], R, Cb), dtype=C.dtype, device=C.device)
+        data[binv, rows % R, cols % Cb] = C.data
+        counts = torch.bincount(ublocks // Nb, minlength=m // R)
+        return bsr_array((data, ublocks % Nb, counts_to_indptr(counts, torch.int64)), shape=(m, n))
 
     # -- data ufuncs (zero-preserving) -------------------------------------
     def _map(self, fn):
@@ -97,7 +121,9 @@ class SparseArray:
         return self._map(lambda d: d**n)
 
     def astype(self, dtype):
-        return self._map(lambda d: d.to(dtype))
+        from .module import _torch_dtype
+
+        return self._map(lambda d: d.to(_torch_dtype(dtype)))
 
     def copy(self):
         return self._map(torch.clone)
@@ -390,8 +416,6 @@ class SparseArray:
         idx = self.indices
         flags = [indptr[0] != 0, (indptr[1:] < indptr[:-1]).any(), indptr[-1] > idx.shape[0]]
         if full_check and idx.shape[0]:
-            from .ops.coords import expand_rows
-
             lines = expand_rows(indptr, idx.shape[0])
             flags += [(idx.min() < 0) | (idx.max() >= minor),
                       ((lines[1:] == lines[:-1]) & (idx[1:] < idx[:-1])).any()]
@@ -422,3 +446,78 @@ def resolve_shape(shape, rows, cols):
     if rows.shape[0] == 0:
         return (0, 0)
     return (host_int(rows.max()) + 1, host_int(cols.max()) + 1)
+
+
+def _estimate_blocksize(rows, cols, shape, efficiency: float = 0.7):
+    """scipy-style block-structure estimate from int64 coordinates: the
+    largest candidate (r, c) dividing the shape whose dense-block fill
+    nnz / (nnzb r c) clears ``efficiency``, else (1, 1)."""
+    m, n = shape
+    nnz = int(rows.shape[0])
+    if nnz == 0:
+        return (1, 1)
+    for r, c in ((6, 6), (4, 4), (3, 3), (2, 2)):
+        if m % r or n % c:
+            continue
+        nnzb = torch.unique(rows // r * (n // c) + cols // c).shape[0]
+        if nnz / (nnzb * r * c) >= efficiency:
+            return (r, c)
+    return (1, 1)
+
+
+class HostStagingArray(SparseArray):
+    """Common surface of the host staging formats (``dok``, ``lil``): their
+    entries live in Python containers with numpy values, their dtype is a
+    numpy dtype, and conversions to CSR/COO land on ``settings.device``.
+    The zero-preserving ufuncs run torch's functions on the host values."""
+
+    @property
+    def dtype(self):
+        return self._dtype
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("cpu")
+
+    def count_nonzero(self) -> int:
+        return int(np.count_nonzero(self._data_array()))
+
+    def _map(self, fn):
+        return self._with_data(host_array(fn(torch.from_numpy(self._data_array()))))
+
+    def tocsc(self):
+        return self.tocsr().tocsc()
+
+    def todia(self):
+        return self.tocsr().todia()
+
+    # math converts to CSR on the device (scipy's own DOK/LIL math converts too)
+    def __matmul__(self, other):
+        return self.tocsr() @ other
+
+    def dot(self, other):
+        return self.tocsr().dot(other)
+
+    def __add__(self, other):
+        other = other.tocsr() if isinstance(other, HostStagingArray) else other
+        return self.tocsr() + other
+
+    def __mul__(self, other):
+        return self.tocsr() * other
+
+    def multiply(self, other):
+        other = other.tocsr() if isinstance(other, HostStagingArray) else other
+        return self.tocsr().multiply(other)
+
+    def sum(self, axis=None):
+        return self.tocsr().sum(axis=axis)
+
+    @property
+    def T(self):
+        return self.transpose()
+
+    def __repr__(self):
+        return (f"<{self.shape[0]}x{self.shape[1]} {self.format.upper()} array, nnz={self.nnz},"
+                f" dtype={self.dtype}>")
+
+    __str__ = __repr__

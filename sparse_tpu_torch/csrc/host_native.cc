@@ -11,7 +11,9 @@
 //     and a Gilbert-Peierls left-looking sparse LU with partial pivoting
 //     (exact, or ILUT with threshold and fill-cap drops). They are
 //     row- or column-sequential, so they run here as setup steps; the
-//     triangular solves with their factors run on the tensors' device.
+//     triangular solves with their factors run on the tensors' device;
+//   * the independent-set BFS expansion of quantum.py's Hamiltonian build
+//     (one level of bitset sets at a time).
 //
 // Built with g++ -O3 -shared -fPIC on first use by sparse_tpu_torch/native.py
 // and bound with ctypes; callers take their plain path when it cannot be.
@@ -443,6 +445,50 @@ extern "C" {
 void* splu_factor(int64_t n, const int64_t* Ap, const int64_t* Ai,
                   const double* Ax, int64_t* info) {
   return lu_factor_core(n, Ap, Ai, Ax, 0.0, 0, info);
+}
+
+// ---------------------------------------------------------------------------
+// Independent-set BFS expansion (quantum.py's level-by-level enumeration)
+// ---------------------------------------------------------------------------
+
+// Total number of size-(k+1) sets generated from this level:
+// sum of popcounts of the extension queues.
+int64_t ind_sets_count(const uint64_t* queues, int64_t S, int64_t W) {
+  int64_t total = 0;
+  for (int64_t i = 0; i < S * W; i++) {
+    total += __builtin_popcountll(queues[i]);
+  }
+  return total;
+}
+
+// Expand one BFS level. new_sets/new_queues must hold ind_sets_count rows.
+// Parent-major, then extension node ascending: the numpy expansion's order.
+void ind_sets_expand(const uint64_t* sets, const uint64_t* queues,
+                     const uint64_t* comp_gt,  // [n, W] candidate masks
+                     int64_t S, int64_t W, int64_t n, uint64_t* new_sets,
+                     uint64_t* new_queues) {
+  int64_t out = 0;
+  for (int64_t i = 0; i < S; i++) {
+    const uint64_t* q = queues + i * W;
+    const uint64_t* s = sets + i * W;
+    for (int64_t w = 0; w < W; w++) {
+      uint64_t bits = q[w];
+      while (bits) {
+        int b = __builtin_ctzll(bits);
+        bits &= bits - 1;
+        int64_t u = w * 64 + b;
+        uint64_t* ns = new_sets + out * W;
+        uint64_t* nq = new_queues + out * W;
+        const uint64_t* cg = comp_gt + u * W;
+        for (int64_t ww = 0; ww < W; ww++) {
+          ns[ww] = s[ww];
+          nq[ww] = q[ww] & cg[ww];
+        }
+        ns[w] |= (uint64_t(1) << b);
+        out++;
+      }
+    }
+  }
 }
 
 // ILUT(p, tau) incomplete factorization — same handle/getter protocol.

@@ -9,6 +9,7 @@ data. ``prepared_csr_from_numpy`` does the same for a SELL pack and
 
 from __future__ import annotations
 
+from .bsr import bsr_array
 from .coo import coo_array
 from .csc import csc_array
 from .csr import csr_array
@@ -20,11 +21,12 @@ def from_numpy_parts(fmt: str, parts: dict, shape, device=None):
     """Port array of format ``fmt`` from numpy buffers.
 
     ``parts`` holds ``indptr``/``indices``/``data`` for 'csr' and 'csc',
-    ``row``/``col``/``data`` for 'coo', and ``data``/``offsets`` for 'dia'
-    (scipy layout).
+    ``row``/``col``/``data`` for 'coo', ``data``/``offsets`` for 'dia'
+    (scipy layout), and ``data`` [nnzb, R, C]/``indices``/``indptr`` for
+    'bsr' (``blocksize`` optional, checked against the blocks).
     """
     shape = (int(shape[0]), int(shape[1]))
-    t = {k: as_tensor(v, device) for k, v in parts.items() if k != "offsets"}
+    t = {k: as_tensor(v, device) for k, v in parts.items() if k not in ("offsets", "blocksize")}
     if fmt == "csr":
         return csr_array.from_parts(t["data"], t["indices"], t["indptr"], shape)
     if fmt == "csc":
@@ -33,6 +35,9 @@ def from_numpy_parts(fmt: str, parts: dict, shape, device=None):
         return coo_array((t["data"], (t["row"], t["col"])), shape=shape)
     if fmt == "dia":
         return dia_array((t["data"], parts["offsets"]), shape=shape)
+    if fmt == "bsr":
+        return bsr_array((t["data"], t["indices"], t["indptr"]), shape=shape,
+                         blocksize=parts.get("blocksize"))
     raise ValueError(f"unknown format {fmt!r}")
 
 

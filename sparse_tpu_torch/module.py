@@ -235,10 +235,21 @@ def isspmatrix_dia(o) -> bool:
 
 
 def isspmatrix_bsr(o) -> bool:
-    return False  # the port has no BSR, DOK or LIL arrays yet
+    from .bsr import bsr_array
+
+    return isinstance(o, bsr_array)
 
 
-isspmatrix_dok = isspmatrix_lil = isspmatrix_bsr
+def isspmatrix_dok(o) -> bool:
+    from .dok import dok_array
+
+    return isinstance(o, dok_array)
+
+
+def isspmatrix_lil(o) -> bool:
+    from .lil import lil_array
+
+    return isinstance(o, lil_array)
 
 
 class SparseWarning(Warning):

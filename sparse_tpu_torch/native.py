@@ -2,8 +2,9 @@
 
 It serves what runs on the host only: the Gustavson SpGEMM of CPU-tensor
 f32/f64 products (``ops.spgemm``), the MatrixMarket tokenizers of
-``io.mmread``, and the factorizations of ``_direct`` (ILU(0), IC(0), the
-Gilbert-Peierls sparse LU and ILUT), which take numpy arrays that the
+``io.mmread``, the independent-set expansion of ``quantum``'s build, and
+the factorizations of ``_direct`` (ILU(0), IC(0), the Gilbert-Peierls
+sparse LU and ILUT), which take numpy arrays that the
 caller fetched on purpose (``_direct._coo_host``). The source compiles with
 ``g++ -O3 -march=native -shared -fPIC`` on first use into ``build/sparse_tpu_torch/``
 at the repository root (beside the CUDA builds of ``kernels/_build.py``),
@@ -94,6 +95,11 @@ def _declare(cdll):
     for name in ("splu_lnnz", "splu_unnz"):
         getattr(cdll, name).restype = i64
         getattr(cdll, name).argtypes = [ctypes.c_void_p]
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    cdll.ind_sets_count.restype = i64
+    cdll.ind_sets_count.argtypes = [u64p, i64, i64]
+    cdll.ind_sets_expand.restype = None
+    cdll.ind_sets_expand.argtypes = [u64p, u64p, u64p, i64, i64, i64, u64p, u64p]
     cdll.splu_get.restype = None
     cdll.splu_get.argtypes = [ctypes.c_void_p, i64p, i64p, f64p, i64p, i64p, f64p, i64p]
     cdll.splu_free.restype = None
@@ -107,6 +113,27 @@ def _i64p(a):
 
 def _f64p(a):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+
+
+def _u64p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64))
+
+
+def expand_level(sets, queues, comp_gt, n: int):
+    """One level of quantum.py's independent-set BFS on [S, W] uint64
+    bitsets -> (new_sets, new_queues); None without the library."""
+    L = lib()
+    if L is None:
+        return None
+    S, W = queues.shape
+    sets, queues, comp_gt = (np.ascontiguousarray(a, dtype=np.uint64)
+                             for a in (sets, queues, comp_gt))
+    count = L.ind_sets_count(_u64p(queues), S, W)
+    new_sets = np.empty((count, W), dtype=np.uint64)
+    new_queues = np.empty((count, W), dtype=np.uint64)
+    L.ind_sets_expand(_u64p(sets), _u64p(queues), _u64p(comp_gt), S, W, n, _u64p(new_sets),
+                      _u64p(new_queues))
+    return new_sets, new_queues
 
 
 def parse_mtx_body(body: bytes, nnz: int, kind: int):

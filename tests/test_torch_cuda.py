@@ -758,3 +758,104 @@ def test_expm_multiply_on_the_kernel_equals_the_plain_path():
     a1 = float(linalg.norm(Ac, ord=1)) * t
     bound = float(np.finfo(np.float32).eps) * np.exp(a1) * float(torch.linalg.vector_norm(B))
     assert float(torch.linalg.vector_norm(F.cpu() - Fc)) <= bound
+
+
+# -- slice 9: the remaining formats and application modules --------------------------
+def test_bsr_product_repeats_and_matches_the_cpu():
+    """The BSR product sums each block row in order: bit for bit on a
+    repeat, and equal to the same product on CPU tensors within f64
+    rounding."""
+    import scipy.sparse as sp
+
+    s = sp.random(3000, 3000, 0.002, random_state=np.random.default_rng(3), format="csr")
+    B = st.csr_array(s).tobsr((3, 3))
+    x = torch.tensor(np.random.default_rng(4).standard_normal(3000), device="cuda")
+    y = B @ x
+    assert y.device.type == "cuda" and torch.equal(y, B @ x)
+    torch.testing.assert_close(y.cpu(), torch.tensor(s @ x.cpu().numpy()), rtol=1e-12, atol=1e-12)
+    assert torch.equal(B.tocsr().toarray().cpu(), torch.tensor(s.toarray()))
+
+
+def test_dop853_waits_on_the_card_only_at_its_fetches(monkeypatch):
+    """The stacked-real quantum evolution on the card through the DIA
+    kernel: one counted fetch a step attempt past the setup's three, every
+    other sync an error, and a repeat bit for bit."""
+    from sparse_tpu_torch import hostsync, integrate, quantum
+
+    n = 12
+    adj = np.zeros((n, n))
+    adj[np.arange(n), (np.arange(n) + 1) % n] = 1
+    adj = adj + adj.T
+    drv = quantum.HamiltonianDriver(graph=adj, dtype=np.float32)
+    Hd = drv.hamiltonian
+    Hc = quantum.HamiltonianMIS(graph=adj, poly=drv.ip, dtype=np.float32).hamiltonian
+    nst = Hc.shape[0]
+
+    def rhs(t, y):
+        yr, yi = y[:nst], y[nst:]
+        return torch.cat([t * (Hc @ yi) + (1 - t) * (Hd @ yi), -(t * (Hc @ yr) + (1 - t) * (Hd @ yr))])
+
+    y0 = torch.zeros((2 * nst,), device="cuda")
+    y0[nst - 1] = 1.0
+    rhs(0.0, y0)  # the layouts
+    real = hostsync.fetch
+
+    def fetch(x):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real(x)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(hostsync, "fetch", fetch)
+    outs = []
+    for _ in range(2):
+        hostsync.HOST_SYNCS = 0
+        before = D.dia_spmv_packed.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = integrate.solve_ivp(rhs, (0.0, 1.0), y0, method="DOP853", rtol=1e-5, atol=1e-7)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert hostsync.HOST_SYNCS == 3 + (out.nfev - 2) // integrate.DOP853.n_stages
+        assert D.dia_spmv_packed.launches > before
+        outs.append(out)
+    assert torch.equal(outs[0].y, outs[1].y)
+
+
+def test_csgraph_relaxations_repeat_and_match_the_cpu():
+    """scatter_reduce's amin/amax are order-independent: the card's
+    distances, predecessors and labels equal the CPU's exactly."""
+    import scipy.sparse as sp
+
+    from sparse_tpu_torch import csgraph
+
+    rng = np.random.default_rng(7)
+    G = sp.random(400, 400, 0.02, random_state=rng, format="csr")
+    G.data = rng.uniform(0.5, 2.0, G.nnz)
+    Gc, Gg = st.csr_array(G, device="cpu"), st.csr_array(G)
+    for fn, kw in ((csgraph.dijkstra, dict(indices=[0, 5], return_predecessors=True)),
+                   (csgraph.bellman_ford, dict(return_predecessors=True)),
+                   (csgraph.connected_components, {}),
+                   (csgraph.breadth_first_order, dict(i_start=0))):
+        card, again, cpu = fn(Gg, **kw), fn(Gg, **kw), fn(Gc, **kw)
+        for a, b, c in zip(card, again, cpu):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(a, c)
+
+
+def test_bdf_heat_on_card_matches_the_cpu():
+    from sparse_tpu_torch import integrate
+    from sparse_tpu_torch.models.poisson import laplacian_2d_csr_host
+
+    n = 16
+    x = np.linspace(0, 1, n + 2)[1:-1]
+    y0 = (np.sin(np.pi * x)[:, None] * np.sin(np.pi * x)[None, :]).ravel()
+    sols = []
+    for dev in ("cuda", "cpu"):
+        L = (laplacian_2d_csr_host(n, device=dev) * (-(n + 1) ** 2)).tocsr()
+        sols.append(integrate.solve_ivp(lambda t, y, L=L: L @ y, (0.0, 0.1), y0, method="BDF",
+                                        jac=L, rtol=1e-6, atol=1e-9, device=dev))
+    card, cpu = sols
+    assert card.nfev == cpu.nfev and card.nlu == cpu.nlu
+    np.testing.assert_allclose(card.y.cpu().numpy(), cpu.y.numpy(), rtol=1e-9, atol=1e-12)

@@ -173,14 +173,42 @@ def test_sparse_splu_complex_rhs_and_singular(sparse_lu_forced):
 
 
 def test_splu_rcm_raises_naming_the_roadmap_item(sparse_lu_forced):
-    """permc_spec='RCM' needs csgraph's reverse Cuthill-McKee, which is not
-    ported yet; scipy's COLAMD/MMD names are taken as NATURAL."""
-    S = _gp_matrix(60)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        linalg.splu(st.csr_array(S), permc_spec="RCM")
-    nat = linalg.splu(st.csr_array(S))
+    """permc_spec='RCM' (once a NotImplementedError naming the roadmap
+    item, now csgraph's reverse Cuthill-McKee): on tests/test_direct.py's
+    scrambled banded matrix the RCM order, the factor arrays and so the
+    fill equal the reference's, the fill falls below half NATURAL's, and
+    solves in both directions stay plain A x = b; scipy's COLAMD/MMD names
+    are taken as NATURAL."""
+    from sparse_tpu import csgraph as jcsgraph
+
+    from sparse_tpu_torch import csgraph
+
+    rng = np.random.default_rng(4)
+    n = 400
+    offs = (-12, -5, 0, 5, 12)
+    band = sp.diags([rng.standard_normal(n - abs(k)) for k in offs], offs)
+    band = (band + sp.eye(n) * 6).tocsr()
+    p = rng.permutation(n)
+    S = band[p][:, p].tocsr()
+    np.testing.assert_array_equal(csgraph.reverse_cuthill_mckee(st.csr_array(S)),
+                                  jcsgraph.reverse_cuthill_mckee(sparse_tpu.csr_array(S)))
+    lu_nat, lu_rcm = (linalg.splu(st.csr_array(S), permc_spec=spec) for spec in ("NATURAL", "RCM"))
+    ref = jlinalg.splu(sparse_tpu.csr_array(S), permc_spec="RCM")
+    fill = lambda lu: lu._Lcsc[2].size + lu._Ucsc[2].size  # noqa: E731
+    assert fill(lu_rcm) == fill(ref) and fill(lu_rcm) < fill(lu_nat) / 2
+    for mine, theirs in zip((*lu_rcm._Lcsc, *lu_rcm._Ucsc), (*ref._Lcsc, *ref._Ucsc)):
+        np.testing.assert_array_equal(mine, theirs)
+    np.testing.assert_array_equal(lu_rcm.perm_r, ref.perm_r)
+    np.testing.assert_array_equal(lu_rcm.perm_c, ref.perm_c)
+    b = rng.standard_normal(n)
+    for lu in (lu_nat, lu_rcm):
+        assert _rel(S @ lu.solve(b).numpy(), b) <= 1e-12
+        assert _rel(S.T @ lu.solve(b, trans="T").numpy(), b) <= 1e-12
+        LU = (lu.L @ lu.U).toarray().numpy()
+        np.testing.assert_allclose(LU[lu.perm_r], S.toarray()[:, lu.perm_c], atol=1e-10)
+    np.testing.assert_allclose(lu_rcm.solve(b).numpy(), np.asarray(ref.solve(b)), rtol=1e-10)
     colamd = linalg.splu(st.csr_array(S), permc_spec="COLAMD")
-    np.testing.assert_array_equal(nat._Lcsc[2], colamd._Lcsc[2])
+    np.testing.assert_array_equal(lu_nat._Lcsc[2], colamd._Lcsc[2])
 
 
 def test_splu_above_ceiling_sparse_and_ceiling_errors(monkeypatch):

@@ -334,10 +334,15 @@ def test_eliminate_zeros_sum_duplicates_check_format():
 
 
 def test_not_yet_ported_formats_raise():
-    _, ta, _ = _int_pair(4, 4, 0.5, 1)
+    """tobsr, todok and tolil once raised, naming the roadmap item that
+    ports them; now each converts, to the reference's format and values
+    (explicit zeros and all)."""
+    ja, ta, s = _int_pair(4, 4, 0.5, 1)
     for name in ("tobsr", "todok", "tolil"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            getattr(ta, name)()
+        out, ref = getattr(ta, name)(), getattr(ja, name)()
+        assert out.format == ref.format == name[2:]
+        np.testing.assert_array_equal(np.asarray(out.toarray()), np.asarray(ref.toarray()))
+        np.testing.assert_array_equal(np.asarray(out.toarray()), s.toarray())
 
 
 # -- SDDMM and x @ A --------------------------------------------------------

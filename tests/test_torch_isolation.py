@@ -40,6 +40,12 @@ def test_import_pulls_in_neither_jax_nor_sparse_tpu():
         "import sparse_tpu_torch.linalg.isolve, sparse_tpu_torch.linalg.dsolve\n"
         "import sparse_tpu_torch.linalg.eigen, sparse_tpu_torch.linalg.interface\n"
         "import sparse_tpu_torch.linalg.matfuncs\n"
+        "import sparse_tpu_torch.bsr, sparse_tpu_torch.dok, sparse_tpu_torch.lil\n"
+        "import sparse_tpu_torch.csgraph, sparse_tpu_torch.integrate, sparse_tpu_torch.quantum\n"
+        "import sparse_tpu_torch.spatial, sparse_tpu_torch.coverage, sparse_tpu_torch._bdf\n"
+        "import sparse_tpu_torch._radau, sparse_tpu_torch.dop853_coefficients\n"
+        "from sparse_tpu_torch import bsr_array, dok_array, lil_array, csgraph, integrate\n"
+        "from sparse_tpu_torch import quantum, spatial, coverage_report\n"
         "from sparse_tpu_torch.linalg.isolve import cg\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sparse_tpu'))\n"
         "assert not bad, bad\n"
@@ -67,6 +73,20 @@ def test_linalg_surface_is_the_references():
         names = sorted(n for n in vars(ref) if not n.startswith("_"))
         assert sorted(n for n in vars(mod) if not n.startswith("_")) == names
         assert all(getattr(mod, n) is getattr(linalg, n) for n in names)
+
+
+def test_coverage_report_is_the_references():
+    """The port implements the same scipy.sparse names as the reference,
+    the *_matrix aliases and sparray included, and its classes the same
+    methods of scipy's."""
+    import sparse_tpu
+
+    mine, ref = st.coverage_report(), sparse_tpu.coverage_report()
+    assert mine["implemented"] == ref["implemented"]
+    for name in ("bsr_array", "bsr_matrix", "coo_matrix", "csc_matrix", "csr_matrix",
+                 "dia_matrix", "dok_array", "dok_matrix", "lil_array", "lil_matrix", "sparray"):
+        assert name in mine["implemented"]
+    assert mine["classes"] == ref["classes"] and mine["missing"] == ref["missing"]
 
 
 def test_native_library_builds_only_the_ports_own_source():
